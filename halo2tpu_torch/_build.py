@@ -31,6 +31,7 @@ _SIGNATURES = {
     "h2_mont_mul": [_P, _P, _P, _I64, _P, _P],
     "h2_fold_mixed": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _P,
                       _P],
+    "h2_fold_mixed_tiled": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "h2_fold_add": [_P, _P, _P, _I64, _P, _P],
     "h2_fold_dbl": [_P, _P, _I64, _P, _P],
 }

@@ -57,6 +57,6 @@ def msm_table_to_jax(t: torch.Tensor) -> np.ndarray:
         to_jax_limbs(t).astype(np.uint16), (2, 0, 3, 1)))
 
 
-def load_jax_msm_table(path: str, device="cpu") -> torch.Tensor:
+def load_jax_msm_table(path: str, device="cuda") -> torch.Tensor:
     """Read a halo2tpu .cache/msm_table_<tag>.npy into a port table."""
     return msm_table_from_jax(np.load(path, mmap_mode="r")).to(device)

@@ -8,14 +8,26 @@
 //                    MSM row loop of ops/msm.py::_partials_fused moved inside
 //                    the kernel and its one-hot MXU table select replaced by
 //                    a direct gather table[digit, base];
+//   fold_mixed_tiled <- pallas_ec.py::_fold_mixed_tiled / fold_mixed_tiled
+//                    (_mixed_tiled_kernel): one row step of the bit-serial
+//                    MSM (ops/msm.py::_pallas_row_step); lane l adds base
+//                    l mod C of a small (C, 3, 8) array where its mask byte
+//                    is set, the same madd-2007-bl body and doubling patch;
 //   fold_add_any  <- pallas_ec.py::fold_add_any (_add_kernel -> _padd_core);
+//                    the same entry serves pallas_ec.py::fold_add, whose
+//                    L % 512 == 0 rule the Python wrapper checks;
 //   fold_dbl_any  <- pallas_ec.py::fold_dbl_any (_dbl_kernel -> _pdbl_lm).
 //
 // Bound on the H100: 32-bit integer multiply throughput, like mont_mul (a
-// mixed add is 11 Montgomery products, a full add 16, a doubling 6).  The
+// mixed add is 7 Montgomery products and 4 squarings, a full add 11 and 5, a
+// doubling 2 and 5; fe_sqr runs the full product, so the squarings' saving,
+// 36 instead of 64 limb products in a*a, is not taken yet).  The
 // simple design keeps one accumulator per thread in registers for the whole
 // row loop (fold_mixed reads its accumulator once and writes it once per
 // launch), and branches around the work of masked and identity lanes.
+// fold_mixed_tiled is one row per launch, as the Pallas kernel is: it reads
+// and writes its accumulator once per row, and its C shared bases (24 KB at
+// C = 256) stay in L1 instead of being broadcast to every lane in memory.
 #include "field.cuh"
 
 namespace {
@@ -171,6 +183,26 @@ __global__ void fold_mixed_kernel(const uint32_t* __restrict__ acc_in,
   pt_store(acc_out + l * 3 * H2_LIMBS, acc);
 }
 
+// Lane l adds pts_c[l mod C] where bits[l] != 0 (the Pallas tiled kernel's
+// mask).  Bases with Z = 0 leave acc as is.
+__global__ void fold_mixed_tiled_kernel(const uint32_t* __restrict__ acc_in,
+                                        uint32_t* __restrict__ acc_out,
+                                        const uint32_t* __restrict__ pts_c,
+                                        const uint8_t* __restrict__ bits,
+                                        long long lanes, int C, Modulus M) {
+  const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (l >= lanes) return;
+  Pt acc = pt_load(acc_in + l * 3 * H2_LIMBS);
+  if (bits[l] != 0) {
+    const uint32_t* e = pts_c + (l % C) * 3 * H2_LIMBS;
+    const Fe z2 = fe_load(e + 2 * H2_LIMBS);
+    if (!fe_is_zero(z2)) {
+      acc = pt_add_mixed(acc, fe_load(e), fe_load(e + H2_LIMBS), M);
+    }
+  }
+  pt_store(acc_out + l * 3 * H2_LIMBS, acc);
+}
+
 __global__ void fold_add_kernel(const uint32_t* __restrict__ p,
                                 const uint32_t* __restrict__ q,
                                 uint32_t* __restrict__ out, long long lanes,
@@ -209,6 +241,19 @@ extern "C" int h2_fold_mixed(const void* acc_in, void* acc_out,
                         (cudaStream_t)stream>>>(
         (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)table,
         (const uint32_t*)scalars, lanes, C, B, npad, r0, r1, modulus_from_words(mod));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_fold_mixed_tiled(const void* acc_in, void* acc_out,
+                                   const void* pts_c, const void* bits,
+                                   long long lanes, int C,
+                                   const uint32_t* mod, void* stream) {
+  if (lanes > 0) {
+    fold_mixed_tiled_kernel<<<blocks_for(lanes), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)pts_c,
+        (const uint8_t*)bits, lanes, C, modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from halo2tpu.fields.bn254 import Q, fq_inv
+from ..fields.bn254 import Q, fq_inv
 from ..fields.jfield import FQ, add, is_zero, eq, sub, device_of
 from ..ops.cuda_field import mont_mul_plain
 
 
-def affine_to_device(points, device="cpu") -> torch.Tensor:
+def affine_to_device(points, device="cuda") -> torch.Tensor:
     """Host affine points (x, y) or None -> (n, 3, 8) tensor."""
     xs, ys, zs = [], [], []
     for p in points:
@@ -49,7 +49,7 @@ def device_to_affine(arr) -> list:
     return out
 
 
-def identity_points(shape_prefix, device="cpu") -> torch.Tensor:
+def identity_points(shape_prefix, device="cuda") -> torch.Tensor:
     """(*shape_prefix, 3, 8) identity points (1, 1, 0), Montgomery coords."""
     d = device_of(device)
     one = FQ.const("one_mont", d)

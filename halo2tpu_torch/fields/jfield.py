@@ -18,7 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
-from halo2tpu.fields.bn254 import Q, R as FR_MOD
+from .bn254 import Q, R as FR_MOD
 from ..ops import cuda_field
 from ..ops.cuda_field import carry_in
 
@@ -136,18 +136,18 @@ class FieldSpec:
     def from_mont(self, a):
         return mont_mul(self, a, self.const("one_plain", a.device))
 
-    def encode(self, vals, device="cpu") -> torch.Tensor:
+    def encode(self, vals, device="cuda") -> torch.Tensor:
         """python ints -> (n, 8) Montgomery tensor on `device`."""
         limbs = ints_to_limbs([v % self.p for v in vals]).copy()
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 
-    def encode_packed(self, u16_arr, device="cpu") -> torch.Tensor:
+    def encode_packed(self, u16_arr, device="cuda") -> torch.Tensor:
         """(..., 16) uint16 plain limbs (host numpy) -> Montgomery."""
         limbs = limbs16_to_limbs(u16_arr).copy()
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 
     def encode_narrow_stack(self, main_u16, tail_u16, split: int,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
         """main_u16 (L, n) uint16 VALUES (rows >= split zeroed), tail_u16
         (L, n - split, 16) full limbs of the tail rows -> (L, n, 8)
         Montgomery."""

@@ -1,5 +1,8 @@
 """G1 point folds: the CUDA kernels (csrc/ec_fold.cu) and their plain torch
-versions.  Counterpart of halo2tpu/ops/pallas_ec.py.
+versions.  Counterpart of halo2tpu/ops/pallas_ec.py:
+fold_mixed (windowed row steps, table gather fused), fold_mixed_tiled (one
+bit-serial row step), fold_add (tile-aligned) and fold_add_any (one add
+kernel), fold_dbl_any.
 
 Layout: a point batch is (L, 3, 8) int32, lane-major — each thread of a
 kernel loads its own 96 contiguous bytes.  The windowed table is
@@ -102,27 +105,103 @@ def fold_mixed(acc, table, scalars, C: int, planes: int, r0: int, r1: int):
 fold_mixed.launches = 0
 
 
-# -- fold_add_any / fold_dbl_any -------------------------------------------
+# -- fold_mixed_tiled: one bit-serial MSM row step --------------------------
 
-def fold_add_any_plain(p, q):
-    return jpoint.padd(p, q)
+def fold_mixed_tiled_plain(acc, pts_c, bits):
+    """Plain version of fold_mixed_tiled: jpoint.padd_mixed over the bases
+    broadcast to every lane, masked lanes given a Z = 0 point."""
+    L, C = acc.shape[0], pts_c.shape[0]
+    pts = pts_c.repeat(L // C, 1, 1)
+    pts[:, 2] = torch.where((bits != 0)[:, None], pts[:, 2], 0)
+    return jpoint.padd_mixed(acc, pts)
 
 
-def fold_add_any(p, q):
-    """Lanewise full Jacobian add over (L, 3, 8), any L."""
-    _check_points("fold_add_any", p, q)
-    if p.shape != q.shape:
-        raise ValueError("fold_add_any: shape mismatch")
-    if _on_cpu(p, q):
-        return fold_add_any_plain(p, q)
+def fold_mixed_tiled(acc, pts_c, bits):
+    """acc[l] += pts_c[l mod C] where bits[l] != 0: acc (L, 3, 8) Jacobian,
+    pts_c (C, 3, 8) affine bases shared by every group of C lanes (C | L),
+    bits (L,) uint8.  Lane rules of pallas_ec.py::_mixed_tiled_kernel:
+    a zero bit or an identity base keeps acc, an identity acc takes the
+    base, acc == -base gives the identity, acc == base doubles."""
+    _check_points("fold_mixed_tiled", acc, pts_c)
+    L, C = acc.shape[0], pts_c.shape[0]
+    if C == 0 or L % C:
+        raise ValueError(f"fold_mixed_tiled: C = {C} does not divide L = {L}")
+    if bits.dtype != torch.uint8 or bits.shape != (L,):
+        raise ValueError(f"fold_mixed_tiled: expected ({L},) uint8 bits, got "
+                         f"{tuple(bits.shape)} {bits.dtype}")
+    if _on_cpu(acc, pts_c, bits):
+        return fold_mixed_tiled_plain(acc, pts_c, bits)
+    from .._build import check
+    acc = acc.contiguous()
+    pts_c = pts_c.contiguous()
+    bits = bits.contiguous()
+    out = torch.empty_like(acc)
+    lib, stream = _launch_args(acc)
+    check(lib.h2_fold_mixed_tiled(acc.data_ptr(), out.data_ptr(),
+                                  pts_c.data_ptr(), bits.data_ptr(), L, C,
+                                  FQ.mod_words_ptr, stream),
+          "fold_mixed_tiled")
+    fold_mixed_tiled.launches += 1
+    return out
+
+
+fold_mixed_tiled.launches = 0
+
+
+# -- fold_add (tile-aligned entry) / fold_add_any / fold_dbl_any -----------
+
+ADD_TILE = 512   # pallas_ec.py::TILE: fold_add takes whole tiles of lanes
+
+
+def _launch_add(p, q, name):
     from .._build import check
     p = p.contiguous()
     q = q.contiguous()
     out = torch.empty_like(p)
     lib, stream = _launch_args(p)
     check(lib.h2_fold_add(p.data_ptr(), q.data_ptr(), out.data_ptr(),
-                          p.shape[0], FQ.mod_words_ptr, stream),
-          "fold_add_any")
+                          p.shape[0], FQ.mod_words_ptr, stream), name)
+    return out
+
+
+def fold_add_plain(p, q):
+    return jpoint.padd(p, q)
+
+
+def fold_add(p, q):
+    """Lanewise full Jacobian add over (L, 3, 8) with L % 512 == 0, the
+    contract of pallas_ec.py::fold_add; the same add kernel as
+    fold_add_any, with its own launch count."""
+    _check_points("fold_add", p, q)
+    if p.shape != q.shape:
+        raise ValueError("fold_add: shape mismatch")
+    if p.shape[0] % ADD_TILE:
+        raise ValueError(f"fold_add: L = {p.shape[0]} is not a multiple of "
+                         f"{ADD_TILE}")
+    if _on_cpu(p, q):
+        return fold_add_plain(p, q)
+    out = _launch_add(p, q, "fold_add")
+    fold_add.launches += 1
+    return out
+
+
+fold_add.launches = 0
+
+fold_add_any_plain = fold_add_plain
+
+
+def fold_add_any(p, q):
+    """Lanewise full Jacobian add over (L, 3, 8), any L.  Whole 512-lane
+    tiles go through fold_add and count there, as pallas_ec.py::fold_add_any
+    launches the tile-aligned add itself."""
+    _check_points("fold_add_any", p, q)
+    if p.shape != q.shape:
+        raise ValueError("fold_add_any: shape mismatch")
+    if _on_cpu(p, q):
+        return fold_add_any_plain(p, q)
+    if p.shape[0] % ADD_TILE == 0:
+        return fold_add(p, q)
+    out = _launch_add(p, q, "fold_add_any")
     fold_add_any.launches += 1
     return out
 

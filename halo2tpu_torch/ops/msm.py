@@ -1,12 +1,18 @@
-"""Windowed fixed-base MSM on torch tensors.  Port of the windowed path of
-halo2tpu/ops/msm.py.
+"""Multi-scalar multiplication on torch tensors.  Port of halo2tpu/ops/msm.py
+(the windowed path and the single-device bit-serial path).
 
-The SRS bases are fixed across every commitment, so each base gets a
-256-entry table of affine multiples w * P (built once per SRS, on the
-device), and a commitment walks 32 8-bit digit planes: lane (plane, batch,
-c) adds table[digit, r * C + c] for every row r (one fold_mixed launch
-covers all rows), a C -> 1 tree-fold of fold_add_any sums each group, and a
-Horner pass over the planes (fold_dbl_any / fold_add_any) combines them.
+Windowed (MSMContext, every commitment of the prover): the SRS bases are
+fixed across every commitment, so each base gets a 256-entry table of
+affine multiples w * P (built once per SRS, on the device), and a
+commitment walks 32 8-bit digit planes: lane (plane, batch, c) adds
+table[digit, r * C + c] for every row r (one fold_mixed launch covers all
+rows), a C -> 1 tree-fold (fold_add / fold_add_any) sums each group, and
+a Horner pass over the planes (fold_dbl_any / fold_add_any) combines them.
+
+Bit-serial (msm(), no table): lane (bit * B + b) * C + c adds base r * C + c
+of row r where bit `bit` of scalars[b, r * C + c] is set, one
+fold_mixed_tiled launch per row of C bases; a C -> 1 tree-fold sums each
+(bit, batch) group and a Horner pass over the 254 bits combines them.
 """
 from __future__ import annotations
 
@@ -16,12 +22,13 @@ import os
 import numpy as np
 import torch
 
-from halo2tpu.fields.bn254 import R
+from ..fields.bn254 import R
 from ..curves.jpoint import affine_to_device, device_to_affine, identity_points
 from ..fields.jfield import (FQ, batch_inv_scan, device_of, ints_to_limbs,
-                             is_zero, mont_mul)
-from .cuda_ec import fold_add_any, fold_dbl_any, fold_mixed
+                             is_zero, mont_mul, u64)
+from .cuda_ec import fold_add_any, fold_dbl_any, fold_mixed, fold_mixed_tiled
 
+SCALAR_BITS = 254
 WINDOW_BITS = 8
 TABLE_W = 1 << WINDOW_BITS          # multiples per base, incl. identity
 NUM_WINDOWS = 256 // WINDOW_BITS    # digit planes
@@ -74,6 +81,18 @@ def precompute_window_table(points):
     return torch.stack(slots)
 
 
+def _tree_fold(acc, G: int, width: int):
+    """(G * width, 3, 8) -> (G, 3, 8): each group of `width` lanes summed by
+    halving rounds (the MSM tails)."""
+    while width > 1:
+        half = width // 2
+        a4 = acc.reshape(G, width, 3, 8)
+        acc = fold_add_any(a4[:, :half].reshape(G * half, 3, 8),
+                           a4[:, half:].reshape(G * half, 3, 8))
+        width = half
+    return acc
+
+
 def _partials_fused(table, scalar_limbs, C: int, P: int = NUM_WINDOWS):
     """Windowed fold of B scalar vectors: table (W, n, 3, 8); scalar_limbs
     (B, n, 8) plain limbs, known < 2^(8P).  Returns (B, P, 3, 8) Jacobian
@@ -84,13 +103,7 @@ def _partials_fused(table, scalar_limbs, C: int, P: int = NUM_WINDOWS):
     G = P * bsz
     acc = identity_points((G * C,), table.device)
     acc = fold_mixed(acc, table, scalar_limbs, C, P, 0, rows)
-    width = C
-    while width > 1:
-        half = width // 2
-        a4 = acc.reshape(G, width, 3, 8)
-        acc = fold_add_any(a4[:, :half].reshape(G * half, 3, 8),
-                           a4[:, half:].reshape(G * half, 3, 8))
-        width = half
+    acc = _tree_fold(acc, G, C)
     return acc.reshape(P, bsz, 3, 8).transpose(0, 1)
 
 
@@ -109,6 +122,59 @@ def _horner_device_w(partials):
 def _wpartials_to_affine(partials) -> list:
     """(B, NUM_WINDOWS, 3, 8) digit-plane sums -> B host affine points."""
     return device_to_affine(_horner_device_w(partials))
+
+
+# -- bit-serial path (ops/msm.py::msm without `shardings`) ------------------
+
+def _bit_masks(scalar_rows):
+    """(B, C, 8) plain scalar limbs -> (SCALAR_BITS * B * C,) uint8 lane
+    masks: lane (bit * B + b) * C + c holds bit `bit` of scalar [b, c]."""
+    bit = torch.arange(SCALAR_BITS, device=scalar_rows.device)
+    words = u64(scalar_rows)[..., bit // 32]              # (B, C, 254)
+    bits = (words >> (bit % 32)) & 1
+    return bits.permute(2, 0, 1).reshape(-1).to(torch.uint8)
+
+
+def _bit_partials(points, scalar_limbs, fold_width=None):
+    """points (n, 3, 8) affine bases; scalar_limbs (B, n, 8) plain limbs.
+    Returns (B, SCALAR_BITS, 3, 8) Jacobian per-bit masked sums."""
+    n = points.shape[0]
+    bsz = scalar_limbs.shape[0]
+    C = min(n, fold_width or _FOLD_WIDTH)
+    G = SCALAR_BITS * bsz
+    acc = identity_points((G * C,), points.device)
+    for r in range(n // C):
+        acc = fold_mixed_tiled(acc, points[r * C:(r + 1) * C],
+                               _bit_masks(scalar_limbs[:, r * C:(r + 1) * C]))
+    acc = _tree_fold(acc, G, C)
+    return acc.reshape(SCALAR_BITS, bsz, 3, 8).transpose(0, 1)
+
+
+def _horner_device(partials):
+    """(B, SCALAR_BITS, 3, 8) -> (B, 3, 8): acc = 2 * acc + partial[bit],
+    top bit down, with the point kernels."""
+    bsz = partials.shape[0]
+    acc = identity_points((bsz,), partials.device)
+    for b in range(SCALAR_BITS - 1, -1, -1):
+        acc = fold_add_any(fold_dbl_any(acc), partials[:, b].contiguous())
+    return acc
+
+
+def _partials_to_affine(partials) -> list:
+    """(B, SCALAR_BITS, 3, 8) per-bit sums -> B host affine points."""
+    return device_to_affine(_horner_device(partials))
+
+
+def msm(points_device, scalars_batch: list[list[int]]) -> list:
+    """MSM of the same bases against a batch of scalar vectors, on the
+    device of `points_device` ((n, 3, 8) from jpoint.affine_to_device, n a
+    power of two, padded with identity).  scalars_batch: B lists of python
+    ints.  Returns B host affine points (None for the identity)."""
+    n = points_device.shape[0]
+    arrs = [ints_to_limbs([v % R for v in s] + [0] * (n - len(s)))
+            for s in scalars_batch]
+    limbs = torch.from_numpy(np.stack(arrs)).to(points_device.device)
+    return _partials_to_affine(_bit_partials(points_device, limbs))
 
 
 def points_tag(points) -> str:
@@ -130,7 +196,7 @@ class MSMContext:
     written atomically; a file of the wrong shape is ignored."""
 
     def __init__(self, points: list, cache_tag: str | None = None,
-                 device="cpu"):
+                 device="cuda"):
         n = len(points)
         npad = 1 << (n - 1).bit_length() if n > 1 else 1
         self.n = n

@@ -10,14 +10,14 @@ from __future__ import annotations
 
 import torch
 
-from halo2tpu.fields.bn254 import R, inv_mod
+from ..fields.bn254 import R, inv_mod
 from ..fields.jfield import FR, add, device_of, ints_to_limbs, mont_mul, sub
 
 
 class NTTPlan:
     """Twiddles omega^t (t < n/2, Montgomery) and 1/n on one device."""
 
-    def __init__(self, n: int, omega: int, device="cpu"):
+    def __init__(self, n: int, omega: int, device="cuda"):
         assert n & (n - 1) == 0 and n >= 2
         self.n = n
         self.omega = omega
@@ -37,7 +37,7 @@ class NTTPlan:
 _PLANS: dict = {}
 
 
-def get_plan(n: int, omega: int, device="cpu") -> NTTPlan:
+def get_plan(n: int, omega: int, device="cuda") -> NTTPlan:
     key = (n, omega % R, device_of(device))
     if key not in _PLANS:
         _PLANS[key] = NTTPlan(n, omega, device)

@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from halo2tpu.curves import g1 as G1
-from halo2tpu.fields.bn254 import R, FR_DELTA, inv_mod
-from halo2tpu.plonk import polyops
-from halo2tpu.plonk.domain import Domain
+from ..curves import g1 as G1
+from ..fields.bn254 import R, FR_DELTA, inv_mod
+from . import polyops
+from .domain import Domain
 from ..fields import jfield
 from ..fields.jfield import FR, NLIMB, device_of
 from ..ops import ntt as tntt
@@ -76,7 +76,7 @@ class TorchEngine:
     msm_batch = 8           # columns per MSM fold
     _NARROW_PLANES = 8      # digit planes of a bounded (<= 63-bit) column
 
-    def __init__(self, domain: Domain, srs, device="cpu"):
+    def __init__(self, domain: Domain, srs, device="cuda"):
         self.d = domain
         self.srs = srs
         self.device = device_of(device)

@@ -22,14 +22,14 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from halo2tpu.fields.bn254 import R, FR_DELTA, inv_mod
-from halo2tpu.plonk import polyops
-from halo2tpu.plonk.circuit import Assignment
-from halo2tpu.plonk.domain import rotate_omega
-from halo2tpu.plonk.keygen import ProvingKey
-from halo2tpu.plonk.shplonk import Query, shplonk_open
-from halo2tpu.plonk.transcript import ProofWriter
-from halo2tpu.utils.trace import NULL
+from ..fields.bn254 import R, FR_DELTA, inv_mod
+from ..utils.trace import NULL
+from . import polyops
+from .circuit import Assignment
+from .domain import rotate_omega
+from .keygen import ProvingKey
+from .shplonk import Query, shplonk_open
+from .transcript import ProofWriter
 from .engine import TorchEngine
 from .quotient import compress_exprs, fold_quotient
 
@@ -121,7 +121,7 @@ def _phase(tr, name: str, eng):
 
 def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
                  rng_seed: int = 0, engine: TorchEngine | None = None,
-                 device="cpu", tracer=None) -> bytes:
+                 device="cuda", tracer=None) -> bytes:
     """engine: a TorchEngine for pk's domain (reuse one across proofs to
     keep its pk state warm); None makes one on `device`."""
     tr = tracer or NULL

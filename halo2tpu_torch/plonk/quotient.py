@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from halo2tpu.fields.bn254 import R, FR_DELTA
-from halo2tpu.plonk import polyops
-from halo2tpu.plonk.expression import (AdviceQuery, Constant, FixedQuery,
-                                       InstanceQuery, Neg, Product, Sum)
+from ..fields.bn254 import R, FR_DELTA
+from . import polyops
+from .expression import (AdviceQuery, Constant, FixedQuery, InstanceQuery,
+                         Neg, Product, Sum)
 from ..fields import jfield
 from ..fields.jfield import FR
 

@@ -1,18 +1,20 @@
 """Each CUDA kernel of halo2tpu_torch against its plain torch version on
-the card (bitwise).  Needs an NVIDIA GPU and nvcc: the tests skip where
-CUDA is absent.  This file imports no jax, so it runs on the GPU machine:
+the card (bitwise), and the bit-serial msm() against the host G1.msm.
+Needs an NVIDIA GPU and nvcc: the tests skip where CUDA is absent.  This
+file imports only the port (no jax, no halo2tpu), so it runs on the GPU
+machine:
     python -m pytest tests/test_torch_cuda.py -q
 """
 import numpy as np
 import pytest
 import torch
 
-from halo2tpu.curves import g1 as G1
-from halo2tpu.fields.bn254 import G1_GEN, Q, R
+from halo2tpu_torch.curves import g1 as G1
 from halo2tpu_torch.curves.jpoint import affine_to_device
+from halo2tpu_torch.fields.bn254 import G1_GEN, Q, R
 from halo2tpu_torch.fields.jfield import FQ, FR, ints_to_limbs
 from halo2tpu_torch.ops import cuda_ec, cuda_field
-from halo2tpu_torch.ops.msm import TABLE_W
+from halo2tpu_torch.ops.msm import TABLE_W, msm
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +69,43 @@ def test_point_kernels_match_plain(dev):
     args = (acc, table, scalars, C, P, 0, npad // C)
     assert torch.equal(cuda_ec.fold_mixed(*args),
                        cuda_ec.fold_mixed_plain(*args))
+
+
+def test_bit_serial_kernels_match_plain(dev):
+    C, L = 8, 8 * 64
+    pts = _points(C - 1, 6) + [None]
+    accs = _points(L - 3, 7) + [pts[0], G1.neg(pts[1]), None]
+    acc = affine_to_device(accs, dev)
+    pts_c = affine_to_device(pts, dev)
+    bits = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 2, L).astype(np.uint8)).to(dev)
+    bits[-3:] = 1
+    before = cuda_ec.fold_mixed_tiled.launches
+    assert torch.equal(cuda_ec.fold_mixed_tiled(acc, pts_c, bits),
+                       cuda_ec.fold_mixed_tiled_plain(acc, pts_c, bits))
+    assert cuda_ec.fold_mixed_tiled.launches == before + 1
+    before = cuda_ec.fold_add.launches
+    assert torch.equal(cuda_ec.fold_add(acc, acc.flip(0)),
+                       cuda_ec.fold_add_plain(acc, acc.flip(0)))
+    assert cuda_ec.fold_add.launches == before + 1
+    # fold_add_any hands whole tiles to fold_add, which counts the launch
+    before_any = cuda_ec.fold_add_any.launches
+    assert torch.equal(cuda_ec.fold_add_any(acc, acc.flip(0)),
+                       cuda_ec.fold_add_plain(acc, acc.flip(0)))
+    assert cuda_ec.fold_add.launches == before + 2
+    assert cuda_ec.fold_add_any.launches == before_any
+    with pytest.raises(ValueError):
+        cuda_ec.fold_add(acc[:L - 1], acc[:L - 1])
+
+
+def test_msm_matches_host(dev):
+    n = 64
+    pts = _points(n - 1, 9) + [None]
+    rng = np.random.default_rng(10)
+    svs = [[int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)],
+           [R - 1] * n, [0] * n]
+    assert msm(affine_to_device(pts, dev), svs) == [G1.msm(pts, s)
+                                                    for s in svs]
 
 
 def test_kernels_reject_mixed_devices(dev):

@@ -32,6 +32,7 @@ def test_fold_add_any_matches_pallas_and_g1():
     want = pallas_fold_add_any(
         to_limb_major(jax_affine(ps + [None] * 28))[:, :, :L],
         to_limb_major(jax_affine(qs + [None] * 28))[:, :, :L])
-    got = cuda_ec.fold_add_any(affine_to_device(ps), affine_to_device(qs))
+    got = cuda_ec.fold_add_any(affine_to_device(ps, "cpu"),
+                               affine_to_device(qs, "cpu"))
     assert torch.equal(got, convert.points_from_limb_major(np.asarray(want)))
     assert device_to_affine(got) == [G1.add(p, q) for p, q in zip(ps, qs)]

@@ -19,7 +19,7 @@ def test_fold_dbl_any_matches_pallas_and_g1():
     L = 100
     ps = [G1.scalar_mul(G1_GEN, 7 + 3 * i) for i in range(L - 3)] + [None] * 3
     want = pallas_fold_dbl_any(to_limb_major(jax_affine(ps)))
-    got = cuda_ec.fold_dbl_any(affine_to_device(ps))
+    got = cuda_ec.fold_dbl_any(affine_to_device(ps, "cpu"))
     assert torch.equal(got, convert.points_from_limb_major(np.asarray(want)))
     assert device_to_affine(got) == [G1.add(p, p) for p in ps]
     # chained: doubling a doubled (Z != 1) batch

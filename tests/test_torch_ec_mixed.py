@@ -48,15 +48,16 @@ def test_fold_mixed_matches_pallas_and_g1():
                              to_limb_major(jax_affine(pts)),
                              jnp.asarray(bits))
     # port: one row of C = L bases, B = 1 scalar vector, 1 digit plane
-    table = affine_to_device([None] * L).expand(TABLE_W, L, 3, 8).clone()
-    ptab = affine_to_device(pts)
+    table = affine_to_device([None] * L, "cpu").expand(
+        TABLE_W, L, 3, 8).clone()
+    ptab = affine_to_device(pts, "cpu")
     lane = torch.arange(L)
     dig = torch.tensor(digits)
     table[dig, lane] = ptab
-    table[0] = affine_to_device([None] * L)
+    table[0] = affine_to_device([None] * L, "cpu")
     scalars = torch.from_numpy(ints_to_limbs(digits).copy())[None]
-    got = cuda_ec.fold_mixed(affine_to_device(accs), table, scalars, L, 1,
-                             0, 1)
+    got = cuda_ec.fold_mixed(affine_to_device(accs, "cpu"), table, scalars,
+                             L, 1, 0, 1)
     assert torch.equal(got, convert.points_from_limb_major(np.asarray(want)))
     exp = []
     for a, p, d in zip(accs, pts, digits):
@@ -72,12 +73,12 @@ def test_fold_mixed_rows_and_planes():
     base_pts = [G1.scalar_mul(G1_GEN, int(rng.integers(1, 1 << 20)))
                 for _ in range(npad)]
     table = torch.stack([affine_to_device(
-        [None if w == 0 else G1.scalar_mul(p, w) for p in base_pts])
+        [None if w == 0 else G1.scalar_mul(p, w) for p in base_pts], "cpu")
         for w in range(TABLE_W)])
     svals = [[int(rng.integers(0, 1 << 24)) for _ in range(npad)]
              for _ in range(B)]
     scalars = torch.from_numpy(np.stack([ints_to_limbs(s) for s in svals]))
-    acc = affine_to_device([None] * (P * B * C))
+    acc = affine_to_device([None] * (P * B * C), "cpu")
     got = device_to_affine(cuda_ec.fold_mixed(acc, table, scalars, C, P, 0,
                                               npad // C))
     for plane in range(P):

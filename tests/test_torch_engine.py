@@ -22,7 +22,7 @@ N = 1 << K
 def engines():
     d = make_domain(K, 3)
     srs = setup(K, cache=False)
-    return JaxEngine(d, srs), TorchEngine(d, srs), HostEngine(d, srs)
+    return JaxEngine(d, srs), TorchEngine(d, srs, "cpu"), HostEngine(d, srs)
 
 
 def _ints(rng, m, n=N):

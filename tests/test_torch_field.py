@@ -88,7 +88,7 @@ def test_prefix_prod_batched_columns():
     """The blocked scan runs over axis 0 with batch columns behind it."""
     rng = np.random.default_rng(14)
     cols = [[1 + v for v in _vals(rng, R - 1, 37)] for _ in range(3)]
-    t = torch.stack([tjf.FR.encode(c) for c in cols], dim=1)
+    t = torch.stack([tjf.FR.encode(c, "cpu") for c in cols], dim=1)
     out = tjf._prefix_prod(tjf.FR, t)
     for j, c in enumerate(cols):
         acc, want = 1, []
@@ -105,13 +105,13 @@ def test_encodings():
     assert tjf.limbs_to_ints(u16) == vals
     assert tjf.limbs_to_ints(tjf.ints_to_limbs(vals)) == vals
     assert tjf.limbs_to_int(tjf.int_to_limbs(vals[0])) == vals[0]
-    assert tjf.FR.decode(tjf.FR.encode_packed(u16)) == vals
-    _same(jjf.FR.encode_packed(u16), tjf.FR.encode_packed(u16))
+    assert tjf.FR.decode(tjf.FR.encode_packed(u16, "cpu")) == vals
+    _same(jjf.FR.encode_packed(u16), tjf.FR.encode_packed(u16, "cpu"))
     # narrow wire: small values on rows < split, full limbs after
     small = [int(v) for v in rng.integers(0, 1 << 16, 12)]
     main = np.array([small[:8] + [0] * 4], "<u2")
     tail = tjf.ints_to_limbs16(vals[:4])[None]
-    got = tjf.FR.encode_narrow_stack(main, tail, 8)
+    got = tjf.FR.encode_narrow_stack(main, tail, 8, "cpu")
     _same(jjf.FR.encode_narrow_stack(main, tail, 8), got)
     assert tjf.FR.decode(got[0]) == small[:8] + vals[:4]
 
@@ -135,4 +135,4 @@ def test_convert_round_trips(tmp_path):
     # halo2tpu's on-disk table file (.cache/msm_table_<tag>.npy)
     np.save(tmp_path / "msm_table_x.npy", tab)
     assert torch.equal(convert.load_jax_msm_table(
-        str(tmp_path / "msm_table_x.npy")), pt)
+        str(tmp_path / "msm_table_x.npy"), "cpu"), pt)

@@ -1,5 +1,7 @@
-"""halo2tpu_torch imports and proves without jax, CUDA, nvcc or triton, and
-never falls back to the CPU when CUDA is asked for."""
+"""halo2tpu_torch stands alone: it imports and proves without jax, without
+halo2tpu, without CUDA, nvcc or triton; its entry points ask for the card
+unless the caller passes device="cpu", and never fall back to the CPU."""
+import ast
 import os
 import subprocess
 import sys
@@ -16,18 +18,22 @@ import sys
 import torch
 torch.set_num_threads(1)
 import halo2tpu_torch
-from halo2tpu.circuits.signal import SquareCircuit
-from halo2tpu.plonk.srs import setup
-from halo2tpu.plonk.verifier import verify_proof
+from halo2tpu_torch.circuits.signal import SquareCircuit
+from halo2tpu_torch.plonk.srs import setup
+from halo2tpu_torch.plonk.verifier import verify_proof
 from halo2tpu_torch.plonk.keygen import keygen
 from halo2tpu_torch.plonk.prover import create_proof
 c = SquareCircuit(5)
 srs = setup(3, cache=False)
-pk, vk = keygen(c, 3, srs)
-proof = create_proof(pk, srs, c, c.instances(), rng_seed=9)
+pk, vk = keygen(c, 3, srs, device="cpu")
+proof = create_proof(pk, srs, c, c.instances(), rng_seed=9, device="cpu")
 assert verify_proof(vk, srs, c.instances(), proof)
+assert not verify_proof(vk, srs, c.instances(), proof[:-1])
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-print("NOJAX-OK", len(proof))
+loaded = sorted(m for m in sys.modules
+                if m == "halo2tpu" or m.startswith("halo2tpu."))
+assert not loaded, loaded
+print("STANDALONE-OK", len(proof))
 """
 
 
@@ -36,12 +42,13 @@ def test_proof_without_jax_subprocess():
     res = subprocess.run([sys.executable, "-c", _PROVE_K3], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "NOJAX-OK 1120" in res.stdout
+    assert "STANDALONE-OK 1120" in res.stdout
 
 
 def test_import_needs_no_cuda_nvcc_or_triton():
     code = ("import sys, halo2tpu_torch, halo2tpu_torch.plonk.prover, "
-            "halo2tpu_torch.ops.cuda_ec, halo2tpu_torch.convert\n"
+            "halo2tpu_torch.plonk.verifier, halo2tpu_torch.ops.cuda_ec, "
+            "halo2tpu_torch.ops.msm, halo2tpu_torch.convert\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
             "assert _build._lib is None\n")
@@ -51,15 +58,71 @@ def test_import_needs_no_cuda_nvcc_or_triton():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
+def _imports_of(path):
+    """Every module name an import statement in `path` names."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_nothing_of_halo2tpu():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "halo2tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 30
+    bad = [(os.path.relpath(p, ROOT), m) for p in paths
+           for m in _imports_of(p)
+           if m == "halo2tpu" or m.startswith("halo2tpu.") or m == "jax"
+           or m.startswith("jax.")]
+    assert not bad, bad
+
+
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")
-    from halo2tpu.plonk.domain import make_domain
-    from halo2tpu.plonk.srs import setup
     from halo2tpu_torch.fields.jfield import FR
+    from halo2tpu_torch.plonk.domain import make_domain
     from halo2tpu_torch.plonk.engine import TorchEngine
+    from halo2tpu_torch.plonk.srs import setup
     with pytest.raises(RuntimeError, match="CUDA"):
         FR.encode([1, 2], "cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(make_domain(3, 3), setup(3, cache=False),
                     device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """With no CUDA, every entry point called without device= raises:
+    the default is the card, never the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    from halo2tpu_torch.circuits.signal import SquareCircuit
+    from halo2tpu_torch.curves.jpoint import affine_to_device
+    from halo2tpu_torch.fields.bn254 import G1_GEN
+    from halo2tpu_torch.fields.jfield import FR
+    from halo2tpu_torch.ops.msm import MSMContext
+    from halo2tpu_torch.ops.ntt import get_plan
+    from halo2tpu_torch.plonk.domain import make_domain
+    from halo2tpu_torch.plonk.engine import TorchEngine
+    from halo2tpu_torch.plonk.keygen import keygen
+    from halo2tpu_torch.plonk.prover import create_proof
+    from halo2tpu_torch.plonk.srs import setup
+    c, srs = SquareCircuit(5), setup(3, cache=False)
+    pk, _ = keygen(c, 3, srs, device="cpu")
+    calls = {
+        "keygen": lambda: keygen(c, 3, srs),
+        "create_proof": lambda: create_proof(pk, srs, c, c.instances()),
+        "TorchEngine": lambda: TorchEngine(make_domain(3, 3), srs),
+        "MSMContext": lambda: MSMContext([G1_GEN] * 4),
+        "affine_to_device": lambda: affine_to_device([G1_GEN]),
+        "get_plan": lambda: get_plan(8, make_domain(3, 3).omega),
+        "FieldSpec.encode": lambda: FR.encode([1]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+            pytest.fail(f"{name} ran without CUDA")

@@ -28,7 +28,7 @@ def test_ntt_intt_match_jax_and_host(k):
     vals = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
     a_j = JFR.encode(vals)
     a_t = convert.from_jax_limbs(np.asarray(a_j))
-    plan_j, plan_t = jntt.get_plan(n, omega), tntt.get_plan(n, omega)
+    plan_j, plan_t = jntt.get_plan(n, omega), tntt.get_plan(n, omega, "cpu")
     fwd = tntt.ntt(plan_t, a_t)
     assert np.array_equal(convert.to_jax_limbs(fwd),
                           np.asarray(jntt.ntt(plan_j, a_j)))
@@ -47,7 +47,7 @@ def test_ntt_intt_match_jax_and_host(k):
 def test_window_table_entries():
     n = 8
     pts = [G1.scalar_mul(G1_GEN, 5 + i) for i in range(n - 1)] + [None]
-    tab = precompute_window_table(affine_to_device(pts))
+    tab = precompute_window_table(affine_to_device(pts, "cpu"))
     assert tab.shape == (TABLE_W, n, 3, 8)
     for w in (0, 1, 2, 3, 7, 128, 200, 255):
         got = device_to_affine(tab[w])
@@ -64,7 +64,7 @@ def test_msm_commit_matches_g1_msm():
     rng = np.random.default_rng(31)
     pts = [G1.scalar_mul(G1_GEN, int(rng.integers(1, 1 << 40)))
            for _ in range(n)]
-    ctx = MSMContext(pts)
+    ctx = MSMContext(pts, device="cpu")
     svs = [[int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
            for _ in range(2)] + [[0] * n]
     assert ctx.commit_batch(svs) == [G1.msm(pts, sv) for sv in svs]
@@ -77,7 +77,7 @@ def test_msm_narrow_planes():
     rng = np.random.default_rng(32)
     pts = [G1.scalar_mul(G1_GEN, int(rng.integers(1, 1 << 40)))
            for _ in range(n - 3)] + [None] * 3
-    ctx = MSMContext(pts)
+    ctx = MSMContext(pts, device="cpu")
     small = [[int(rng.integers(0, 1 << 62)) for _ in range(ctx.n)]
              for _ in range(2)]
     limbs = torch.from_numpy(np.stack([ints_to_limbs(s) for s in small]))

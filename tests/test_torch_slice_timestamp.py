@@ -1,18 +1,22 @@
 """The port's whole slice on the Timestamp circuit (k=6, permutation only):
-byte-identical to halo2tpu's HostEngine proof and to the golden file."""
+byte-identical to halo2tpu's HostEngine proof and to the golden file.  The
+port proves its own copy of the circuit (chip_smoke.golden_circuits())."""
 import json
 import os
 
 import pytest
 import torch
 
+from chip_smoke import golden_circuits
 from halo2tpu.circuits.timestamp import TimestampCircuit
 from halo2tpu.plonk.keygen import keygen as jax_keygen
 from halo2tpu.plonk.prover import create_proof as jax_create_proof
-from halo2tpu.plonk.srs import setup
-from halo2tpu.plonk.verifier import verify_proof
+from halo2tpu.plonk.srs import setup as jax_setup
+from halo2tpu.plonk.verifier import verify_proof as jax_verify_proof
 from halo2tpu_torch.plonk.keygen import keygen
 from halo2tpu_torch.plonk.prover import create_proof
+from halo2tpu_torch.plonk.srs import setup
+from halo2tpu_torch.plonk.verifier import verify_proof
 
 torch.set_num_threads(1)
 
@@ -23,20 +27,24 @@ K, SEED = 6, 27
 
 @pytest.fixture(scope="module")
 def proofs():
-    c = TimestampCircuit(2023, 7, 8, 12, 34, 56)
-    srs = setup(K, cache=False)
-    pk_j, vk_j = jax_keygen(c, K, srs)
-    pk_t, vk_t = keygen(c, K, srs)
+    cj = TimestampCircuit(2023, 7, 8, 12, 34, 56)
+    c, k, inst, seed = golden_circuits()["timestamp_k6"]
+    assert (k, inst, seed) == (K, [], SEED)
+    srs_j, srs = jax_setup(K, cache=False), setup(K, cache=False)
+    pk_j, vk_j = jax_keygen(cj, K, srs_j)
+    pk_t, vk_t = keygen(c, K, srs, device="cpu")
     assert vk_t.transcript_repr == vk_j.transcript_repr
-    host = jax_create_proof(pk_j, srs, c, [], rng_seed=SEED, engine="host")
-    port = create_proof(pk_t, srs, c, [], rng_seed=SEED)
-    return srs, vk_j, host, port
+    host = jax_create_proof(pk_j, srs_j, cj, [], rng_seed=SEED,
+                            engine="host")
+    port = create_proof(pk_t, srs, c, [], rng_seed=SEED, device="cpu")
+    return (srs_j, vk_j), (srs, vk_t), host, port
 
 
 def test_timestamp_k6_byte_parity_and_verifies(proofs):
-    srs, vk, host, port = proofs
+    (srs_j, vk_j), (srs, vk_t), host, port = proofs
     assert port == host
-    assert verify_proof(vk, srs, [], port)
+    assert jax_verify_proof(vk_j, srs_j, [], port)
+    assert verify_proof(vk_t, srs, [], port)
 
 
 def test_timestamp_k6_matches_golden(proofs):

@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 Phases, run in order, each of which raises on failure (non-zero exit):
-  1. build   the card's name and power limit; build the CUDA kernels.
+  1. build   the card's name and power limit; build the CUDA kernels (one
+             nvcc a source, in parallel) and print each kernel's registers
+             and spills as ptxas reports them.
   2. kernels each kernel against its plain torch version, bitwise, at the
-             main paths' shapes; kernel and plain times beside the bound
-             (the least time the card could take for the same work).
+             main paths' shapes (fold_mixed at the three widths of a k=15
+             commit, fold_dbl_any at 2^20 lanes once and 16 lanes 8
+             times); kernel times as the median, min and max of 3 rounds
+             timed in turns, plain times, and the bound (the least time the
+             card could take for the same work).
   3. golden  Square k=4, Timestamp k=6 and RangeHarness k=7 (the port's
              own circuits) proven with TorchEngine(device="cuda"),
              byte-equal to tests/golden/torch_port_proofs.json (made by
              halo2tpu's HostEngine).
   4. slice   RSA-SHA256 at k=15 (1024-byte message, pinned key): setup,
              keygen, a cold and a warm proof with phase times, verification,
-             determinism, launches per warm proof, peak memory.
+             determinism, launches and kernel shapes per warm proof (no
+             windowed fold_mixed launch under ops/msm.py's LANE_TARGET
+             lanes unless it is one row), peak memory.
   5. msm     the bit-serial msm() over the 2^15 Lagrange bases of phase 4's
              SRS, 8 scalar vectors, equal to the windowed commits of the
              same vectors (phase 4's MSMContext) and, at n = 256, to the
@@ -112,6 +119,21 @@ def _timed(fn, iters: int, warmup: int = 2):
     return start.elapsed_time(stop) / iters, out
 
 
+ROUNDS = 3   # kernel timings: this many rounds, every case once a round
+
+
+def _time_in_turns(cases: dict) -> dict:
+    """cases: name -> (fn, iters).  Times each case once a round, in turns
+    across cases, ROUNDS rounds; returns name -> {ms (median), ms_min,
+    ms_max}."""
+    runs: dict = {name: [] for name in cases}
+    for _ in range(ROUNDS):
+        for name, (fn, iters) in cases.items():
+            runs[name].append(_timed(fn, iters)[0])
+    return {name: {"ms": statistics.median(v), "ms_min": min(v),
+                   "ms_max": max(v)} for name, v in runs.items()}
+
+
 def _max_abs_err(a, b) -> int:
     """Largest |difference| between two int32 limb tensors (0 = equal)."""
     import torch
@@ -146,95 +168,42 @@ def _add_pairs(La: int, dev, g):
     return p, q, 64 * (ADD_PRE + DBL) + 64 * ADD_PRE + (La - 256) * ADD
 
 
-def phase_kernels(report: dict, card: Card) -> None:
+def _mixed_case(g, table, scal, P: int, C: int, card: "Card"):
+    """(acc, bound) for a fold_mixed check of P planes over the B scalar
+    vectors `scal` at width C, all npad // C rows.  Row 0 holds 512 lanes
+    each whose acc equals, negates or lacks (identity) its entry; lanes
+    with digit 0 in a row are masked there."""
     import torch
     from halo2tpu_torch.fields import jfield
-    from halo2tpu_torch.fields.bn254 import Q, R
-    from halo2tpu_torch.ops import cuda_ec, cuda_field
     from halo2tpu_torch.ops.cuda_ec import window_digits
-    from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
-
-    dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(7)
-
-    def record(name, replaces, source, err, ms, plain_ms, bound, **extra):
-        if err != 0:
-            raise AssertionError(f"{name}: kernel != plain (max |diff| "
-                                 f"{err})")
-        report[name] = {"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        **bound, "library_ms": None, **extra}
-        log(f"kernel {name}: bitwise equal to plain; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']})")
-
-    # mont_mul, Fr and Fq: 2^20 random lanes + every pair of the edge
-    # operands.  One kernel and one launch count; ms / plain_ms are Fr's
-    n = 1 << 20
-    err, times = 0, {}
-    for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
-        edge = [p - 1, p - 2, 1, (1 << 254) % p]
-        ea = torch.from_numpy(jfield.ints_to_limbs(
-            [x for x in edge for _ in edge]).copy())
-        eb = torch.from_numpy(jfield.ints_to_limbs(
-            [y for _ in edge for y in edge]).copy())
-        a = torch.cat([_rand_fe(g, n, dev), ea.to(dev)])
-        b = torch.cat([_rand_fe(g, n, dev), eb.to(dev)])
-        ms, got = _timed(lambda: cuda_field.mont_mul(spec, a, b), 1000)
-        plain_ms, want = _timed(lambda: cuda_field.mont_mul_plain(spec, a, b),
-                                3)
-        rinv = pow(1 << 256, -1, p)
-        edge_got = jfield.limbs_to_ints(got[n:].cpu().numpy())
-        if edge_got != [x * y * rinv % p for x in edge for y in edge]:
-            raise AssertionError(f"mont_mul {fname}: edge operands wrong")
-        err = max(err, _max_abs_err(got, want))
-        times[fname] = (ms, plain_ms)
-        log(f"mont_mul {fname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    lanes = a.shape[0]
-    record("mont_mul", "halo2tpu/ops/pallas_field.py:347",
-           "halo2tpu_torch/csrc/mont_mul.cu", err, *times["fr"],
-           card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
-           fq_ms=times["fq"][0], fq_plain_ms=times["fq"][1])
-
-    # fold_mixed at k=15's row step: P=32 planes, B=8, C=256, npad=2^15
-    P, B, C, npad = 32, 8, 256, 1 << 15
-    L = P * B * C
+    B, npad = scal.shape[0], scal.shape[1]
+    L, rows = P * B * C, npad // C
+    dev = table.device
     fq1 = jfield.FQ.const("one_mont", dev)
-    table = torch.empty((TABLE_W, npad, 3, 8), dtype=torch.int32, device=dev)
-    for w in range(TABLE_W):
-        table[w, :, :2] = _rand_fe(g, 2 * npad, dev).reshape(npad, 2, 8)
-        table[w, :, 2] = fq1
-    table[0, :, 2] = 0                           # digit 0: identity entries
-    scal = _rand_fe(g, B * npad, dev).reshape(B, npad, 8)
     acc = _rand_points(g, L, dev)
-    # special lanes of row 0 (lane = (plane * B + b) * C + c, base = c)
-    digs = window_digits(scal[:, :C], P).reshape(-1)      # (L,) digit
+    digs = window_digits(scal[:, :C], P).reshape(-1)      # (L,) row-0 digit
+    if not bool((digs == 0).any()):
+        raise AssertionError(f"fold_mixed P{P} C{C}: no masked lane in row 0")
     lane = torch.arange(L, device=dev)
     ent = table[digs, lane % C]                           # gathered points
-    special = {"equal": 0, "inverse": 1, "acc_identity": 2}
-    for kind, off in special.items():
+    for off in range(3):
         sel = lane[(lane % 7 == off) & (digs != 0)][:512]
-        if kind == "equal":
+        if off == 0:                                      # equal
             acc[sel, 0], acc[sel, 1], acc[sel, 2] = (
                 ent[sel, 0], ent[sel, 1], fq1)
-        elif kind == "inverse":
+        elif off == 1:                                    # inverse
             acc[sel, 0] = ent[sel, 0]
             acc[sel, 1] = jfield.neg(jfield.FQ, ent[sel, 1])
             acc[sel, 2] = fq1
             inverse_lanes = sel
-        else:
+        else:                                             # acc identity
             acc[sel, 2] = 0
-    masked = int((digs == 0).sum())
-    if masked == 0:
-        raise AssertionError("fold_mixed check has no masked lanes")
     # the work these inputs need: every (lane, row) with a nonzero digit is
     # a generic mixed add, except row 0's acc-identity lanes (no product),
     # equal lanes (the pre-test products, then a doubling) and inverse
     # lanes (the pre-test products only, then an identity acc whose next add
     # takes the point without a product)
     all_digs = window_digits(scal, P)                     # (P, B, npad)
-    rows = npad // C
     active = all_digs.reshape(P * B, rows, C).permute(0, 2, 1).reshape(L, rows)
     active = active != 0
     adds = int(active.sum())
@@ -244,95 +213,192 @@ def phase_kernels(report: dict, card: Card) -> None:
     entries = torch.unique(all_digs.to(torch.int64) * npad
                            + torch.arange(npad, device=dev))
     n_entries = int((entries >= npad).sum())              # digit != 0
-    fm_bound = card.bound(2 * L * POINT_BYTES + scal.numel() * 4
-                          + n_entries * POINT_BYTES, mul32)
-    del all_digs, active, entries
-    # the main path's launch: all rows of the batch (the special lanes sit
-    # in row 0), against one plain run of the same rows
-    ms, got = _timed(
-        lambda: cuda_ec.fold_mixed(acc, table, scal, C, P, 0, rows), 20)
-    plain_ms, want = _timed(
-        lambda: cuda_ec.fold_mixed_plain(acc, table, scal, C, P, 0, rows), 1,
-        warmup=0)
-    row_ms, _ = _timed(
-        lambda: cuda_ec.fold_mixed(acc, table, scal, C, P, 0, 1), 500)
-    log(f"fold_mixed: {rows} rows in one launch, {masked} masked lanes in "
-        f"row 0; one row alone {row_ms:.4f} ms")
-    record("fold_mixed", "halo2tpu/ops/pallas_ec.py:218",
-           "halo2tpu_torch/csrc/ec_fold.cu", _max_abs_err(got, want), ms,
-           plain_ms, fm_bound, rows=rows, one_row_ms=row_ms)
-    del table, got, want
+    bound = card.bound(2 * L * POINT_BYTES + scal.numel() * 4
+                       + n_entries * POINT_BYTES, mul32)
+    return acc, bound
+
+
+def phase_kernels(report: dict, card: Card) -> None:
+    import torch
+    from halo2tpu_torch.fields import jfield
+    from halo2tpu_torch.fields.bn254 import Q, R
+    from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    cases: dict = {}       # case name -> (kernel call, iterations)
+    checks: dict = {}      # kernel -> [{case, max_abs_err, plain_ms, ...}]
+
+    def check(name, timing, fn, plain, iters, bound, plain_runs=3, **extra):
+        """fn() against plain() on the same inputs, bitwise; queue fn() for
+        the timing rounds.  A plain version timed over several runs gets
+        one warm-up run (its first call sets up the torch ops it uses)."""
+        _, got = _timed(fn, 1, warmup=0)
+        plain_ms, want = _timed(plain, plain_runs,
+                                warmup=1 if plain_runs > 1 else 0)
+        err = _max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{timing}: kernel != plain (max |diff| "
+                                 f"{err})")
+        cases[timing] = (fn, iters)
+        checks.setdefault(name, []).append(
+            {"case": timing, "max_abs_err": err, "plain_ms": plain_ms,
+             **bound, **extra})
+
+    # mont_mul, Fr and Fq: 2^20 random lanes + every pair of the edge
+    # operands, and the squaring (both operands one buffer).  One kernel
+    # and one launch count; the entry's ms / plain_ms are Fr's product
+    n = 1 << 20
+    for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
+        edge = [p - 1, p - 2, 1, (1 << 254) % p]
+        ea = torch.from_numpy(jfield.ints_to_limbs(
+            [x for x in edge for _ in edge]).copy())
+        eb = torch.from_numpy(jfield.ints_to_limbs(
+            [y for _ in edge for y in edge]).copy())
+        a = torch.cat([_rand_fe(g, n, dev), ea.to(dev)])
+        b = torch.cat([_rand_fe(g, n, dev), eb.to(dev)])
+        rinv = pow(1 << 256, -1, p)
+        got = cuda_field.mont_mul(spec, a, b)
+        if jfield.limbs_to_ints(got[n:].cpu().numpy()) != [
+                x * y * rinv % p for x in edge for y in edge]:
+            raise AssertionError(f"mont_mul {fname}: edge operands wrong")
+        got = cuda_field.mont_mul(spec, a, a)
+        if jfield.limbs_to_ints(got[n:].cpu().numpy()) != [
+                x * x * rinv % p for x in edge for _ in edge]:
+            raise AssertionError(f"mont_mul {fname}: edge squares wrong")
+        lanes = a.shape[0]
+        check("mont_mul", f"mont_mul {fname}",
+              lambda s=spec, x=a, y=b: cuda_field.mont_mul(s, x, y),
+              lambda s=spec, x=a, y=b: cuda_field.mont_mul_plain(s, x, y),
+              1000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
+              lanes=lanes)
+        check("mont_mul", f"mont_mul {fname} square",
+              lambda s=spec, x=a: cuda_field.mont_mul(s, x, x),
+              lambda s=spec, x=a: cuda_field.mont_mul_plain(s, x, x),
+              1000, card.bound(2 * lanes * 32, lanes * MUL32_PER_SQR),
+              lanes=lanes)
+
+    # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
+    # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
+    # (P=32, B=8, C=256, 128 rows: the main path's launch), narrow advice
+    # columns (P=8, B=8, C=1024, 32 rows) and a coefficient commit (P=32,
+    # B=1, C=2048, 16 rows), all rows in one launch, each against one plain
+    # run of the same rows
+    npad = 1 << 15
+    fq1 = jfield.FQ.const("one_mont", dev)
+    table = torch.empty((TABLE_W, npad, 3, 8), dtype=torch.int32, device=dev)
+    for w in range(TABLE_W):
+        table[w, :, :2] = _rand_fe(g, 2 * npad, dev).reshape(npad, 2, 8)
+        table[w, :, 2] = fq1
+    table[0, :, 2] = 0                           # digit 0: identity entries
+    scal = _rand_fe(g, 8 * npad, dev).reshape(8, npad, 8)
+    for P, B, C, iters in ((32, 8, 256, 20), (8, 8, 1024, 50),
+                           (32, 1, 2048, 100)):
+        sc = scal[:B]
+        acc, bound = _mixed_case(g, table, sc, P, C, card)
+        rows = npad // C
+        check("fold_mixed", f"fold_mixed P{P} B{B} C{C}",
+              lambda a=acc, s=sc, P=P, C=C, rows=rows: cuda_ec.fold_mixed(
+                  a, table, s, C, P, 0, rows),
+              lambda a=acc, s=sc, P=P, C=C, rows=rows:
+                  cuda_ec.fold_mixed_plain(a, table, s, C, P, 0, rows),
+              iters, bound, plain_runs=1, P=P, B=B, C=C, rows=rows,
+              lanes=P * B * C)
+    del acc
     torch.cuda.empty_cache()
 
     # fold_mixed_tiled at msm()'s full width: L = 254 * 8 * 256 lanes, one
     # row of C = 256 bases (base 255 the identity), about half the lanes
     # masked; 512 lanes each of equal, inverse and acc-identity
-    Bm = 8
+    Bm, C = 8, 256
     Lt = SCALAR_BITS * Bm * C
     pts_c = _rand_points(g, C, dev)
     pts_c[:, 2] = fq1
     pts_c[C - 1, 2] = 0
     bits = torch.randint(0, 2, (Lt,), generator=g, dtype=torch.uint8).to(dev)
-    acc = _rand_points(g, Lt, dev)
+    acc_t = _rand_points(g, Lt, dev)
     lane = torch.arange(Lt, device=dev)
     live = (bits != 0) & (lane % C != C - 1)
     base = pts_c[lane % C]
     sel = {off: lane[(lane % 7 == off) & live][:512] for off in range(3)}
-    acc[sel[0]] = base[sel[0]]                                  # equal
-    acc[sel[1]] = base[sel[1]]                                  # inverse
-    acc[sel[1], 1] = jfield.neg(jfield.FQ, base[sel[1], 1])
-    acc[sel[2], 2] = 0                                          # acc identity
+    acc_t[sel[0]] = base[sel[0]]                                # equal
+    acc_t[sel[1]] = base[sel[1]]                                # inverse
+    acc_t[sel[1], 1] = jfield.neg(jfield.FQ, base[sel[1], 1])
+    acc_t[sel[2], 2] = 0                                        # acc identity
     del base
     live_n = int(live.sum())
     mul32 = ((live_n - 1536) * MIXED_ADD + 512 * (MIXED_PRE + DBL)
              + 512 * MIXED_PRE)
-    ms, got = _timed(lambda: cuda_ec.fold_mixed_tiled(acc, pts_c, bits), 200)
-    plain_ms, want = _timed(
-        lambda: cuda_ec.fold_mixed_tiled_plain(acc, pts_c, bits), 1)
-    log(f"fold_mixed_tiled: {Lt} lanes, C = {C}, {Lt - int((bits != 0).sum())}"
-        f" masked lanes, {live_n} adds")
-    record("fold_mixed_tiled", "halo2tpu/ops/pallas_ec.py:291",
-           "halo2tpu_torch/csrc/ec_fold.cu", _max_abs_err(got, want), ms,
-           plain_ms, card.bound(2 * Lt * POINT_BYTES + Lt + C * POINT_BYTES,
-                                mul32), lanes=Lt, C=C)
-    del acc, bits, got, want
-    torch.cuda.empty_cache()
+    check("fold_mixed_tiled", "fold_mixed_tiled",
+          lambda: cuda_ec.fold_mixed_tiled(acc_t, pts_c, bits),
+          lambda: cuda_ec.fold_mixed_tiled_plain(acc_t, pts_c, bits), 200,
+          card.bound(2 * Lt * POINT_BYTES + Lt + C * POINT_BYTES, mul32),
+          plain_runs=1, lanes=Lt, C=C,
+          masked=Lt - int((bits != 0).sum()), adds=live_n)
 
     # fold_add at the first tail round of msm() (254 * 8 * 128 lanes, a
     # whole number of 512-lane tiles), with doubling, inverse and identity
     # lanes; an unaligned L is refused
     La = SCALAR_BITS * Bm * C // 2
     pa, qa, mul32 = _add_pairs(La, dev, g)
-    ms, got = _timed(lambda: cuda_ec.fold_add(pa, qa), 200)
-    plain_ms, want = _timed(lambda: cuda_ec.fold_add_plain(pa, qa), 3)
+    check("fold_add", "fold_add", lambda: cuda_ec.fold_add(pa, qa),
+          lambda: cuda_ec.fold_add_plain(pa, qa), 200,
+          card.bound(3 * La * POINT_BYTES, mul32), lanes=La)
     try:
         cuda_ec.fold_add(pa[:La - 1], qa[:La - 1])
     except ValueError:
         pass
     else:
         raise AssertionError("fold_add took an unaligned lane count")
-    record("fold_add", "halo2tpu/ops/pallas_ec.py:240",
-           "halo2tpu_torch/csrc/ec_fold.cu", _max_abs_err(got, want), ms,
-           plain_ms, card.bound(3 * La * POINT_BYTES, mul32), lanes=La)
 
     # fold_add_any at an unaligned lane count, same special lanes;
-    # fold_dbl_any at a window-table-build width (no branch: every lane,
-    # identity or not, does the doubling's 2 products and 5 squarings)
-    La = 2 * 32768 + 37
-    pa, qa, mul32 = _add_pairs(La, dev, g)
-    ms, got = _timed(lambda: cuda_ec.fold_add_any(pa, qa), 500)
-    plain_ms, want = _timed(lambda: cuda_ec.fold_add_any_plain(pa, qa), 3)
-    record("fold_add_any", "halo2tpu/ops/pallas_ec.py:341",
-           "halo2tpu_torch/csrc/ec_fold.cu", _max_abs_err(got, want), ms,
-           plain_ms, card.bound(3 * La * POINT_BYTES, mul32))
-    Ld = 1 << 20
-    pd = _rand_points(g, Ld, dev)
-    pd[:1024, 2] = 0
-    ms, got = _timed(lambda: cuda_ec.fold_dbl_any(pd), 200)
-    plain_ms, want = _timed(lambda: cuda_ec.fold_dbl_any_plain(pd), 3)
-    record("fold_dbl_any", "halo2tpu/ops/pallas_ec.py:375",
-           "halo2tpu_torch/csrc/ec_fold.cu", _max_abs_err(got, want), ms,
-           plain_ms, card.bound(2 * Ld * POINT_BYTES, Ld * DBL))
+    # fold_dbl_any at a window-table-build width with times=1 (no branch:
+    # every lane, identity or not, does the doubling's 2 products and 5
+    # squarings) and at a Horner step's shape, 16 lanes doubled 8 times
+    Lb = 2 * 32768 + 37
+    pb, qb, mul32 = _add_pairs(Lb, dev, g)
+    check("fold_add_any", "fold_add_any",
+          lambda: cuda_ec.fold_add_any(pb, qb),
+          lambda: cuda_ec.fold_add_any_plain(pb, qb), 500,
+          card.bound(3 * Lb * POINT_BYTES, mul32), lanes=Lb)
+    for Ld, times, iters in ((1 << 20, 1, 200), (16, 8, 2000)):
+        pd = _rand_points(g, Ld, dev)
+        pd[:max(1, Ld // 1024), 2] = 0
+        check("fold_dbl_any", f"fold_dbl_any L{Ld} x{times}",
+              lambda p=pd, t=times: cuda_ec.fold_dbl_any(p, times=t),
+              lambda p=pd, t=times: cuda_ec.fold_dbl_any_plain(p, t), iters,
+              card.bound(2 * Ld * POINT_BYTES, Ld * times * DBL),
+              lanes=Ld, times=times)
+
+    log(f"kernels: every kernel bitwise equal to its plain version; timing "
+        f"{len(cases)} cases, {ROUNDS} rounds in turns")
+    times = _time_in_turns(cases)
+    replaces = {"mont_mul": "halo2tpu/ops/pallas_field.py:347",
+                "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
+                "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
+                "fold_add": "halo2tpu/ops/pallas_ec.py:240",
+                "fold_add_any": "halo2tpu/ops/pallas_ec.py:341",
+                "fold_dbl_any": "halo2tpu/ops/pallas_ec.py:375"}
+    for name, rows in checks.items():
+        for row in rows:
+            row.update(times[row["case"]])
+            log(f"kernel {row['case']}: kernel {row['ms']:.4f} ms (median "
+                f"of {ROUNDS}, {row['ms_min']:.4f}-{row['ms_max']:.4f}), "
+                f"plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        main = rows[0]                  # the main path's shape comes first
+        source = ("halo2tpu_torch/csrc/mont_mul.cu" if name == "mont_mul"
+                  else "halo2tpu_torch/csrc/ec_fold.cu")
+        report[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name], "launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "ms_min": main["ms_min"],
+            "ms_max": main["ms_max"], "cases": rows}
+    del table
     torch.cuda.empty_cache()
 
 
@@ -351,10 +417,34 @@ def _wrappers() -> dict:
 def _zero_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "shapes"):
+            w.shapes.clear()
 
 
 def _counts() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
+
+
+def _shapes() -> dict:
+    """Each point kernel's shape histogram, a copy: name -> Counter."""
+    return {name: w.shapes.copy() for name, w in _wrappers().items()
+            if hasattr(w, "shapes")}
+
+
+SHAPE_KEYS = {"fold_mixed": "lanes x C x rows",
+              "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
+              "fold_add": "lanes", "fold_add_any": "lanes"}
+# the __global__ function (csrc/, _build.KERNELS) behind each wrapper
+KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
+             "fold_mixed": "fold_mixed_kernel",
+             "fold_mixed_tiled": "fold_mixed_tiled_kernel",
+             "fold_add": "fold_add_kernel", "fold_add_any": "fold_add_kernel",
+             "fold_dbl_any": "fold_dbl_kernel"}
+
+
+def _shape_table(hist) -> dict:
+    """Counter of shape tuples -> {"lanes x ...": launches}, JSON-ready."""
+    return {" x ".join(map(str, k)): n for k, n in sorted(hist.items())}
 
 
 def _record_path(report: dict, path: str, counts: dict, kernels) -> None:
@@ -460,6 +550,7 @@ def phase_slice(report: dict, cache_dir: str):
     from halo2tpu_torch.plonk.prover import create_proof
     from halo2tpu_torch.plonk.srs import setup
     from halo2tpu_torch.plonk.verifier import verify_proof
+    from halo2tpu_torch.ops.msm import LANE_TARGET
     from halo2tpu_torch.utils.trace import Tracer
 
     k = 15
@@ -481,18 +572,32 @@ def phase_slice(report: dict, cache_dir: str):
                               engine=eng)
     cold = time.perf_counter() - t0
     tr = Tracer("rsa_sha256_proof")
-    before = _counts()
+    before, shapes_before = _counts(), _shapes()
     t0 = time.perf_counter()
     proof = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng,
                          tracer=tr)
     warm = time.perf_counter() - t0
     per_warm = {n: v - before[n] for n, v in _counts().items()}
+    warm_shapes = {n: h - shapes_before[n] for n, h in _shapes().items()}
     again = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     phases = {p: round(v, 3) for p, v in tr.phases.items()}
     log(f"slice: cold proof {cold:.2f} s, warm proof {warm:.2f} s")
     log(f"slice: warm phases {json.dumps(phases)}")
+    log("slice: warm commit and SHPLONK phases " + json.dumps(
+        {p: v for p, v in phases.items()
+         if p.startswith("commit_") or p == "shplonk"}))
+    for name, hist in warm_shapes.items():
+        log(f"slice: warm proof shapes {name} ({SHAPE_KEYS[name]}: "
+            f"launches) {json.dumps(_shape_table(hist))}")
+    # every windowed launch over more than one row reaches the lane target
+    # (ops/msm.py::fold_width); one row means C = npad
+    narrow = [k for k in warm_shapes["fold_mixed"]
+              if k[0] < LANE_TARGET and k[2] > 1]
+    if narrow:
+        raise AssertionError(f"slice: fold_mixed launches under "
+                             f"{LANE_TARGET} lanes: {narrow}")
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
     log(f"slice: launches over keygen + 3 proofs {json.dumps(launches)}")
     log(f"slice: launches per warm proof {json.dumps(per_warm)}")
@@ -507,6 +612,9 @@ def phase_slice(report: dict, cache_dir: str):
                   "fold_dbl_any"))
     for name, n in per_warm.items():
         report[name]["launches_per_warm_proof"] = n
+        if name in warm_shapes:
+            report[name]["warm_proof_shapes"] = _shape_table(
+                warm_shapes[name])
     log("slice: proofs verify; same seed, same bytes")
     return srs, eng
 
@@ -610,6 +718,13 @@ def main() -> int:
     _build.lib()
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s"
         f" (nvcc {_build.build_seconds:.1f} s)")
+    for kernel, res in sorted(_build.resources.items()):
+        log(f"build: {kernel}: {res.get('registers')} registers, "
+            f"{res.get('spill_bytes')} bytes spilled (stores + loads), "
+            f"{res.get('stack_bytes')} bytes stack, {res.get('smem_bytes')} "
+            "bytes shared")
+        for line in res["lines"]:
+            log(f"  {line}")
     card = Card()
     log(f"bound: {card.sms} SMs x {IMAD_PER_SM_CLOCK} x "
         f"{card.sm_hz / 1e6:.0f} MHz = {card.mul32_per_s:.4g} 32-bit "
@@ -621,6 +736,10 @@ def main() -> int:
     report: dict = {}
     try:
         phase_kernels(report, card)
+        for name, entry in report.items():
+            res = _build.resources[KERNEL_OF[name]]
+            entry["registers"] = res["registers"]
+            entry["spill_bytes"] = res["spill_bytes"]
         phase_golden()
         srs, eng = phase_slice(report, cache_dir)
         phase_msm(report, srs, eng)

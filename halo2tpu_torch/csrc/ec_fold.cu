@@ -20,11 +20,19 @@
 //
 // Bound on the H100: 32-bit integer multiply throughput, like mont_mul (a
 // mixed add is 7 Montgomery products and 4 squarings, a full add 11 and 5, a
-// doubling 2 and 5; fe_sqr runs the full product, so the squarings' saving,
-// 36 instead of 64 limb products in a*a, is not taken yet).  The
-// simple design keeps one accumulator per thread in registers for the whole
-// row loop (fold_mixed reads its accumulator once and writes it once per
-// launch), and branches around the work of masked and identity lanes.
+// doubling 2 and 5; field.cuh's fe_sqr takes the 36 distinct limb products
+// of a*a instead of 64, and its fe_mul is one out-of-line copy a kernel, so
+// the point formulas' code stays small).  Each thread keeps one accumulator
+// in registers.
+// fold_mixed walks its rows with the accumulator in registers (read and
+// written once per launch), is bounded to 128 registers a thread so that 4
+// blocks of 128 fit an SM (65,536 lanes, the width ops/msm.py gives every
+// full launch, are 512 blocks: one wave on 132 SMs), and gathers row r+1's
+// table entry into a two-stage shared-memory ring with cp.async (and row
+// r+2's digit into a register) while row r's add runs.  fold_dbl_any runs
+// `times` doublings in registers per launch (the MSM's Horner step doubles
+// 8 times between adds) under the same register bound.  Masked and
+// identity lanes branch around the work.
 // fold_mixed_tiled is one row per launch, as the Pallas kernel is: it reads
 // and writes its accumulator once per row, and its C shared bases (24 KB at
 // C = 256) stay in L1 instead of being broadcast to every lane in memory.
@@ -152,33 +160,94 @@ __device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q,
   return o;
 }
 
+constexpr int kThreads = 128;
+// Blocks of kThreads an SM must hold: caps the kernels below at 65,536 /
+// (4 * 128) = 128 registers a thread.
+constexpr int kMinBlocks = 4;
+constexpr int kEntryChunks = 3 * H2_LIMBS / 4;   // 16-byte pieces of a point
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Lane l = g * C + c, g = plane * B + b.  For rows r in [r0, r1) the lane
 // adds table[digit, r * C + c], digit = byte `plane` of scalar b at that
 // base.  Table entries with Z = 0 (digit 0, padded bases) leave acc as is.
-__global__ void fold_mixed_kernel(const uint32_t* __restrict__ acc_in,
-                                  uint32_t* __restrict__ acc_out,
-                                  const uint32_t* __restrict__ table,
-                                  const uint32_t* __restrict__ scalars,
-                                  long long lanes, int C, int B,
-                                  long long npad, int r0, int r1, Modulus M) {
-  const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+// Stage s of the ring holds each thread's 96-byte entry as 6 chunks of 16
+// bytes, chunk k of thread t at ring[s][k][t] (neighbouring threads on
+// neighbouring banks).  A thread reads only what it copied itself, so
+// cp.async.wait_group alone orders the copy before the read; the copy into
+// a stage is issued after the instructions that used its previous contents.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fold_mixed_kernel(const uint32_t* __restrict__ acc_in,
+                  uint32_t* __restrict__ acc_out,
+                  const uint32_t* __restrict__ table,
+                  const uint32_t* __restrict__ scalars, long long lanes,
+                  int C, int B, long long npad, int r0, int r1,
+                  const __grid_constant__ Modulus M) {
+  __shared__ uint4 ring[2][kEntryChunks][kThreads];
+  const int t = threadIdx.x;
+  const long long l = blockIdx.x * (long long)kThreads + t;
   if (l >= lanes) return;
   const long long g = l / C;
   const int c = (int)(l - g * C);
   const int plane = (int)(g / B);
   const int b = (int)(g - (long long)plane * B);
-  const int word = plane >> 2;
   const int shift = (plane & 3) * 8;
+  const uint32_t* sc =
+      scalars + (long long)b * npad * H2_LIMBS + (plane >> 2) + c * H2_LIMBS;
+  const long long row_words = (long long)C * H2_LIMBS;
+  auto digit = [&](int r) -> uint32_t {
+    return (__ldg(sc + r * row_words) >> shift) & 0xFFu;
+  };
+  auto fetch = [&](int r, uint32_t d, int s) {
+    const uint4* e = reinterpret_cast<const uint4*>(
+        table + (d * npad + (long long)r * C + c) * 3 * H2_LIMBS);
+#pragma unroll
+    for (int k = 0; k < kEntryChunks; k++) cp_async16(&ring[s][k][t], e + k);
+    cp_async_commit();
+  };
   Pt acc = pt_load(acc_in + l * 3 * H2_LIMBS);
-  const uint32_t* sc = scalars + (long long)b * npad * H2_LIMBS + word;
+  if (r0 < r1) fetch(r0, digit(r0), 0);
+  uint32_t next = r0 + 1 < r1 ? digit(r0 + 1) : 0;
   for (int r = r0; r < r1; r++) {
-    const long long base = (long long)r * C + c;
-    const uint32_t digit = (sc[base * H2_LIMBS] >> shift) & 0xFFu;
-    const uint32_t* e =
-        table + ((long long)digit * npad + base) * 3 * H2_LIMBS;
-    const Fe z2 = fe_load(e + 2 * H2_LIMBS);
+    const int s = (r - r0) & 1;
+    if (r + 1 < r1) {
+      fetch(r + 1, next, s ^ 1);
+      if (r + 2 < r1) next = digit(r + 2);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    uint32_t e[3 * H2_LIMBS];
+#pragma unroll
+    for (int k = 0; k < kEntryChunks; k++) {
+      const uint4 v = ring[s][k][t];
+      e[4 * k] = v.x; e[4 * k + 1] = v.y; e[4 * k + 2] = v.z;
+      e[4 * k + 3] = v.w;
+    }
+    Fe x2, y2, z2;
+#pragma unroll
+    for (int i = 0; i < H2_LIMBS; i++) {
+      x2.v[i] = e[i];
+      y2.v[i] = e[H2_LIMBS + i];
+      z2.v[i] = e[2 * H2_LIMBS + i];
+    }
     if (fe_is_zero(z2)) continue;
-    acc = pt_add_mixed(acc, fe_load(e), fe_load(e + H2_LIMBS), M);
+    acc = pt_add_mixed(acc, x2, y2, M);
   }
   pt_store(acc_out + l * 3 * H2_LIMBS, acc);
 }
@@ -189,7 +258,8 @@ __global__ void fold_mixed_tiled_kernel(const uint32_t* __restrict__ acc_in,
                                         uint32_t* __restrict__ acc_out,
                                         const uint32_t* __restrict__ pts_c,
                                         const uint8_t* __restrict__ bits,
-                                        long long lanes, int C, Modulus M) {
+                                        long long lanes, int C,
+                                        const __grid_constant__ Modulus M) {
   const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   Pt acc = pt_load(acc_in + l * 3 * H2_LIMBS);
@@ -206,7 +276,7 @@ __global__ void fold_mixed_tiled_kernel(const uint32_t* __restrict__ acc_in,
 __global__ void fold_add_kernel(const uint32_t* __restrict__ p,
                                 const uint32_t* __restrict__ q,
                                 uint32_t* __restrict__ out, long long lanes,
-                                Modulus M) {
+                                const __grid_constant__ Modulus M) {
   const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   const Pt a = pt_load(p + l * 3 * H2_LIMBS);
@@ -214,15 +284,17 @@ __global__ void fold_add_kernel(const uint32_t* __restrict__ p,
   pt_store(out + l * 3 * H2_LIMBS, pt_add(a, b, M));
 }
 
-__global__ void fold_dbl_kernel(const uint32_t* __restrict__ p,
-                                uint32_t* __restrict__ out, long long lanes,
-                                Modulus M) {
+// `times` chained doublings of each lane, in registers.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fold_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
+                long long lanes, int times,
+                const __grid_constant__ Modulus M) {
   const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  pt_store(out + l * 3 * H2_LIMBS, pt_dbl(pt_load(p + l * 3 * H2_LIMBS), M));
+  Pt a = pt_load(p + l * 3 * H2_LIMBS);
+  for (int i = 0; i < times; i++) a = pt_dbl(a, M);
+  pt_store(out + l * 3 * H2_LIMBS, a);
 }
-
-constexpr int kThreads = 128;
 
 unsigned blocks_for(long long lanes) {
   return (unsigned)((lanes + kThreads - 1) / kThreads);
@@ -240,7 +312,8 @@ extern "C" int h2_fold_mixed(const void* acc_in, void* acc_out,
     fold_mixed_kernel<<<blocks_for(lanes), kThreads, 0,
                         (cudaStream_t)stream>>>(
         (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)table,
-        (const uint32_t*)scalars, lanes, C, B, npad, r0, r1, modulus_from_words(mod));
+        (const uint32_t*)scalars, lanes, C, B, npad, r0, r1,
+        modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }
@@ -270,10 +343,11 @@ extern "C" int h2_fold_add(const void* p, const void* q, void* out,
 }
 
 extern "C" int h2_fold_dbl(const void* p, void* out, long long lanes,
-                           const uint32_t* mod, void* stream) {
+                           int times, const uint32_t* mod, void* stream) {
   if (lanes > 0) {
     fold_dbl_kernel<<<blocks_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, lanes, modulus_from_words(mod));
+        (const uint32_t*)p, (uint32_t*)out, lanes, times,
+        modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }

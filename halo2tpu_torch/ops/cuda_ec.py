@@ -11,9 +11,14 @@ Montgomery 1, or 0 for the identity entries: digit 0 and padded bases).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors.  The plain versions are the curves/jpoint.py
-formulas (plain field multiply), on any device.
+formulas (plain field multiply), on any device.  Beside its count of
+launches, each wrapper keeps `shapes`, a histogram of the shapes it
+launched: (lanes, C, rows) for fold_mixed, (lanes, times) for fold_dbl_any,
+(lanes,) for the others.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -93,16 +98,21 @@ def fold_mixed(acc, table, scalars, C: int, planes: int, r0: int, r1: int):
     acc = acc.contiguous()
     table = table.contiguous()
     scalars = scalars.contiguous()
+    if table.data_ptr() % 16:
+        raise ValueError("fold_mixed: the table must be 16-byte aligned "
+                         "(the kernel copies its entries in 16-byte pieces)")
     out = torch.empty_like(acc)
     lib, stream = _launch_args(acc)
     check(lib.h2_fold_mixed(acc.data_ptr(), out.data_ptr(), table.data_ptr(),
                             scalars.data_ptr(), acc.shape[0], C, B, npad, r0,
                             r1, FQ.mod_words_ptr, stream), "fold_mixed")
     fold_mixed.launches += 1
+    fold_mixed.shapes[(acc.shape[0], C, r1 - r0)] += 1
     return out
 
 
 fold_mixed.launches = 0
+fold_mixed.shapes = Counter()
 
 
 # -- fold_mixed_tiled: one bit-serial MSM row step --------------------------
@@ -142,10 +152,12 @@ def fold_mixed_tiled(acc, pts_c, bits):
                                   FQ.mod_words_ptr, stream),
           "fold_mixed_tiled")
     fold_mixed_tiled.launches += 1
+    fold_mixed_tiled.shapes[(L,)] += 1
     return out
 
 
 fold_mixed_tiled.launches = 0
+fold_mixed_tiled.shapes = Counter()
 
 
 # -- fold_add (tile-aligned entry) / fold_add_any / fold_dbl_any -----------
@@ -182,10 +194,12 @@ def fold_add(p, q):
         return fold_add_plain(p, q)
     out = _launch_add(p, q, "fold_add")
     fold_add.launches += 1
+    fold_add.shapes[(p.shape[0],)] += 1
     return out
 
 
 fold_add.launches = 0
+fold_add.shapes = Counter()
 
 fold_add_any_plain = fold_add_plain
 
@@ -203,29 +217,39 @@ def fold_add_any(p, q):
         return fold_add(p, q)
     out = _launch_add(p, q, "fold_add_any")
     fold_add_any.launches += 1
+    fold_add_any.shapes[(p.shape[0],)] += 1
     return out
 
 
 fold_add_any.launches = 0
+fold_add_any.shapes = Counter()
 
 
-def fold_dbl_any_plain(p):
-    return jpoint.pdbl(p)
+def fold_dbl_any_plain(p, times: int = 1):
+    for _ in range(times):
+        p = jpoint.pdbl(p)
+    return p
 
 
-def fold_dbl_any(p):
-    """Lanewise Jacobian doubling over (L, 3, 8), any L, identity-safe."""
+def fold_dbl_any(p, times: int = 1):
+    """Lanewise Jacobian doubling over (L, 3, 8), any L, identity-safe,
+    `times` times over (2^times * p) in one launch; bitwise equal to
+    `times` chained doublings.  times=1 is pallas_ec.py::fold_dbl_any."""
     _check_points("fold_dbl_any", p)
+    if times < 1:
+        raise ValueError(f"fold_dbl_any: times = {times} < 1")
     if _on_cpu(p):
-        return fold_dbl_any_plain(p)
+        return fold_dbl_any_plain(p, times)
     from .._build import check
     p = p.contiguous()
     out = torch.empty_like(p)
     lib, stream = _launch_args(p)
-    check(lib.h2_fold_dbl(p.data_ptr(), out.data_ptr(), p.shape[0],
+    check(lib.h2_fold_dbl(p.data_ptr(), out.data_ptr(), p.shape[0], times,
                           FQ.mod_words_ptr, stream), "fold_dbl_any")
     fold_dbl_any.launches += 1
+    fold_dbl_any.shapes[(p.shape[0], times)] += 1
     return out
 
 
 fold_dbl_any.launches = 0
+fold_dbl_any.shapes = Counter()

@@ -100,7 +100,8 @@ def mont_mul_plain(spec, a, b):
 
 def mont_mul(spec, a, b):
     """Lanewise Montgomery product of (..., 8) int32 tensors (broadcast).
-    CUDA tensors launch the kernel; CPU tensors take mont_mul_plain."""
+    CUDA tensors launch the kernel; CPU tensors take mont_mul_plain.  When
+    a and b are one buffer the kernel takes its squaring (same bits)."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mont_mul_plain(spec, a, b)
     if a.device != b.device or a.device.type != "cuda":

@@ -7,7 +7,9 @@ affine multiples w * P (built once per SRS, on the device), and a
 commitment walks 32 8-bit digit planes: lane (plane, batch, c) adds
 table[digit, r * C + c] for every row r (one fold_mixed launch covers all
 rows), a C -> 1 tree-fold (fold_add / fold_add_any) sums each group, and
-a Horner pass over the planes (fold_dbl_any / fold_add_any) combines them.
+a Horner pass over the planes (fold_dbl_any, 8 doublings a launch, and
+fold_add_any) combines them.  C is chosen per call (fold_width) so that
+every launch over more than one row has at least LANE_TARGET lanes.
 
 Bit-serial (msm(), no table): lane (bit * B + b) * C + c adds base r * C + c
 of row r where bit `bit` of scalars[b, r * C + c] is set, one
@@ -32,7 +34,12 @@ SCALAR_BITS = 254
 WINDOW_BITS = 8
 TABLE_W = 1 << WINDOW_BITS          # multiples per base, incl. identity
 NUM_WINDOWS = 256 // WINDOW_BITS    # digit planes
-_FOLD_WIDTH = 256                   # C: point lanes per row of bases
+_FOLD_WIDTH = 256                   # C: least point lanes per row of bases
+# Lanes a windowed fold_mixed launch should reach: csrc/ec_fold.cu runs 128
+# threads a block with 4 blocks an SM, so 65,536 lanes are 512 blocks, one
+# wave on an H100's 132 SMs (528 slots).  Fewer lanes leave SMs idle while
+# each thread walks more rows in series.
+LANE_TARGET = 1 << 16
 
 
 def _normalize(jac):
@@ -93,6 +100,18 @@ def _tree_fold(acc, G: int, width: int):
     return acc
 
 
+def fold_width(planes: int, batch: int, npad: int,
+               lane_target: int = LANE_TARGET,
+               min_width: int = _FOLD_WIDTH) -> int:
+    """C for a windowed fold of `batch` scalar vectors over `planes` digit
+    planes and npad bases (a power of two): the smallest power of two >=
+    min_width with planes * batch * C >= lane_target, capped at npad."""
+    C = min_width
+    while C < npad and planes * batch * C < lane_target:
+        C *= 2
+    return min(C, npad)
+
+
 def _partials_fused(table, scalar_limbs, C: int, P: int = NUM_WINDOWS):
     """Windowed fold of B scalar vectors: table (W, n, 3, 8); scalar_limbs
     (B, n, 8) plain limbs, known < 2^(8P).  Returns (B, P, 3, 8) Jacobian
@@ -113,8 +132,7 @@ def _horner_device_w(partials):
     bsz = partials.shape[0]
     acc = identity_points((bsz,), partials.device)
     for d in range(NUM_WINDOWS - 1, -1, -1):
-        for _ in range(WINDOW_BITS):
-            acc = fold_dbl_any(acc)
+        acc = fold_dbl_any(acc, times=WINDOW_BITS)
         acc = fold_add_any(acc, partials[:, d].contiguous())
     return acc
 
@@ -233,11 +251,17 @@ class MSMContext:
                 os.replace(tmp, path)
         return self._table
 
-    def partials(self, plain_limbs, planes: int = NUM_WINDOWS):
+    def partials(self, plain_limbs, planes: int = NUM_WINDOWS,
+                 lane_target: int = LANE_TARGET,
+                 min_width: int = _FOLD_WIDTH):
         """(B, npad, 8) plain scalar limbs -> (B, planes, 3, 8) partial
-        sums.  planes < NUM_WINDOWS: scalars known < 2^(8 * planes)."""
+        sums.  planes < NUM_WINDOWS: scalars known < 2^(8 * planes).  The
+        fold's width C is fold_width(planes, B, npad, lane_target,
+        min_width): the Jacobian partials depend on it, their sum does
+        not."""
         npad = self.points.shape[0]
-        C = min(npad, _FOLD_WIDTH)
+        C = fold_width(planes, plain_limbs.shape[0], npad, lane_target,
+                       min_width)
         return _partials_fused(self.table, plain_limbs, C, planes)
 
     def finalize(self, partials_batches: list) -> list:

@@ -12,9 +12,10 @@ import torch
 from halo2tpu_torch.curves import g1 as G1
 from halo2tpu_torch.curves.jpoint import affine_to_device
 from halo2tpu_torch.fields.bn254 import G1_GEN, Q, R
-from halo2tpu_torch.fields.jfield import FQ, FR, ints_to_limbs
+from halo2tpu_torch.fields.jfield import (FQ, FR, ints_to_limbs, limbs_to_ints,
+                                          neg)
 from halo2tpu_torch.ops import cuda_ec, cuda_field
-from halo2tpu_torch.ops.msm import TABLE_W, msm
+from halo2tpu_torch.ops.msm import TABLE_W, msm, precompute_window_table
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +107,75 @@ def test_msm_matches_host(dev):
            [R - 1] * n, [0] * n]
     assert msm(affine_to_device(pts, dev), svs) == [G1.msm(pts, s)
                                                     for s in svs]
+
+
+@pytest.mark.parametrize("C,P", [(8, 1), (8, 32), (32, 8), (32, 32)])
+def test_fold_mixed_widths_match_plain(dev, C, P):
+    """Several rows at C in {8, 32}: identity bases, zero digits, and row-0
+    lanes whose acc equals, negates or lacks their entry."""
+    B, npad = 2, 4 * C
+    bases = _points(npad - 2, 11) + [None, None]
+    table = precompute_window_table(affine_to_device(bases, dev))
+    rng = np.random.default_rng(12 + C + P)
+    svals = [[int.from_bytes(rng.bytes(32), "big") % R for _ in range(npad)]
+             for _ in range(B)]
+    for sv in svals:
+        sv[::5] = [0] * len(sv[::5])
+    scalars = torch.from_numpy(np.stack([ints_to_limbs(s) for s in svals]))
+    scalars = scalars.to(dev)
+    L = P * B * C
+    lane = torch.arange(L, device=dev)
+    acc = affine_to_device(_points(16, 13), dev)[lane % 16]
+    digs = cuda_ec.window_digits(scalars[:, :C], P).reshape(-1)
+    ent = table[digs, lane % C]
+    live = lane[digs != 0]
+    acc[live[0::4]] = ent[live[0::4]]                          # equal
+    inv = live[1::4]                                           # inverse
+    acc[inv] = ent[inv]
+    acc[inv, 1] = neg(FQ, ent[inv, 1])
+    acc[live[2::4], 2] = 0                                     # identity
+    args = (acc, table, scalars, C, P, 0, npad // C)
+    before = cuda_ec.fold_mixed.shapes[(L, C, npad // C)]
+    assert torch.equal(cuda_ec.fold_mixed(*args),
+                       cuda_ec.fold_mixed_plain(*args))
+    assert cuda_ec.fold_mixed.shapes[(L, C, npad // C)] == before + 1
+
+
+def test_fold_dbl_any_times_matches_chained(dev):
+    p = affine_to_device(_points(61, 14) + [None] * 3, dev)
+    before = cuda_ec.fold_dbl_any.launches
+    got = cuda_ec.fold_dbl_any(p, times=8)
+    assert cuda_ec.fold_dbl_any.launches == before + 1
+    assert torch.equal(got, cuda_ec.fold_dbl_any_plain(p, 8))
+    chained = p
+    for _ in range(8):
+        chained = cuda_ec.fold_dbl_any(chained)
+    assert torch.equal(got, chained)
+
+
+_EDGES = {"fr": [0, 1, R - 1, R - 2, (1 << 254) % R],
+          "fq": [0, 1, Q - 1, Q - 2, (1 << 254) % Q]}
+
+
+def test_squaring_edge_operands(dev):
+    """field.cuh's fe_sqr on 0, 1, p - 1, p - 2 and 2^254 mod p: through
+    mont_mul(a, a) (one buffer: the kernel squares) over Fr and Fq, and
+    through fold_dbl_any (five squarings a doubling) over Fq coordinates."""
+    for spec, p, name in ((FR, R, "fr"), (FQ, Q, "fq")):
+        e = _EDGES[name]
+        a = torch.from_numpy(ints_to_limbs(e).copy()).to(dev)
+        rinv = pow(1 << 256, -1, p)
+        got = cuda_field.mont_mul(spec, a, a)
+        assert limbs_to_ints(got.cpu().numpy()) == [x * x * rinv % p
+                                                    for x in e]
+        assert torch.equal(got, cuda_field.mont_mul_plain(spec, a, a))
+        assert torch.equal(got, cuda_field.mont_mul(spec, a, a.clone()))
+    e = torch.from_numpy(ints_to_limbs(_EDGES["fq"]).copy()).to(dev)
+    idx = torch.cartesian_prod(*[torch.arange(5)] * 3).to(dev)   # (125, 3)
+    pts = e[idx]                                                 # (125, 3, 8)
+    for times in (1, 3):
+        assert torch.equal(cuda_ec.fold_dbl_any(pts, times=times),
+                           cuda_ec.fold_dbl_any_plain(pts, times))
 
 
 def test_kernels_reject_mixed_devices(dev):

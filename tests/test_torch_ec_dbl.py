@@ -25,3 +25,18 @@ def test_fold_dbl_any_matches_pallas_and_g1():
     # chained: doubling a doubled (Z != 1) batch
     assert device_to_affine(cuda_ec.fold_dbl_any(got)) == [
         G1.scalar_mul(p, 4) if p else None for p in ps]
+
+
+def test_fold_dbl_any_times_matches_chained_pallas_and_g1():
+    """times=8 (one launch of the Horner step's 8 doublings on the card):
+    eight chained Pallas fold_dbl_any calls and G1.scalar_mul(p, 256),
+    identity lanes included."""
+    L = 20
+    ps = [G1.scalar_mul(G1_GEN, 11 + 5 * i) for i in range(L - 2)] + [None] * 2
+    want = to_limb_major(jax_affine(ps))
+    for _ in range(8):
+        want = pallas_fold_dbl_any(want)
+    got = cuda_ec.fold_dbl_any(affine_to_device(ps, "cpu"), times=8)
+    assert torch.equal(got, convert.points_from_limb_major(np.asarray(want)))
+    assert device_to_affine(got) == [G1.scalar_mul(p, 256) if p else None
+                                     for p in ps]

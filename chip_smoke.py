@@ -6,13 +6,21 @@
 Phases, run in order, each of which raises on failure (non-zero exit):
   1. build   the card's name and power limit; build the CUDA kernels (one
              nvcc a source, in parallel) and print each kernel's registers
-             and spills as ptxas reports them.
+             and spills as ptxas reports them (at most MAX_REGISTERS, no
+             spill) and its SASS instruction counts (cuobjdump), from
+             which fold_add's instruction bound is taken after phase 2.
   2. kernels each kernel against its plain torch version, bitwise, at the
              main paths' shapes (fold_mixed at the three widths of a k=15
              commit, fold_dbl_any at 2^20 lanes once and 16 lanes 8
-             times); kernel times as the median, min and max of 3 rounds
-             timed in turns, plain times, and the bound (the least time the
-             card could take for the same work).
+             times, fold_add at msm()'s and a warm proof's widths,
+             fold_add_tree at the warm proof's four tail shapes and msm()'s,
+             fold_horner at both Horner combines, fold_mixed_tiled_rows at
+             msm()'s full shape); kernel times as the median, min and max of
+             3 rounds timed in turns, plain times, and the bound (the least
+             time the card could take for the same work).  The tree and
+             Horner entries are also timed against the chains of launches
+             they replace, and must not be slower; msm()'s tail also in one
+             tree launch (the route ADD_WAVE is held against).
   3. golden  Square k=4, Timestamp k=6 and RangeHarness k=7 (the port's
              own circuits) proven with TorchEngine(device="cuda"),
              byte-equal to tests/golden/torch_port_proofs.json (made by
@@ -21,11 +29,14 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              keygen, a cold and a warm proof with phase times, verification,
              determinism, launches and kernel shapes per warm proof (no
              windowed fold_mixed launch under ops/msm.py's LANE_TARGET
-             lanes unless it is one row), peak memory.
+             lanes unless it is one row; at most ADD_LAUNCHES_PER_PROOF
+             launches of the add kernel's entries and no fold_dbl_any),
+             peak memory.
   5. msm     the bit-serial msm() over the 2^15 Lagrange bases of phase 4's
              SRS, 8 scalar vectors, equal to the windowed commits of the
              same vectors (phase 4's MSMContext) and, at n = 256, to the
-             host G1.msm; wall times, peak memory.
+             host G1.msm; wall times, peak memory; one row-fold launch, at
+             most ADD_LAUNCHES_PER_MSM add-kernel launches, no fold_dbl_any.
 The launch counts of phases 4 and 5 are each zeroed just before the phase
 and read just after; every kernel of a path must have launched in it.  The
 port imports nothing of JAX or of halo2tpu; the script raises if either
@@ -47,12 +58,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
 IMAD_PER_SM_CLOCK = 64        # 32-bit integer multiplies, compute cap. 9.0
+ISSUE_PER_SM_CLOCK = 4        # warp instructions: one a scheduler a clock
 # One CIOS Montgomery product (csrc/field.cuh::fe_mul): 8 rounds of 8
 # a*b and 8 m*p products of 32 x 32 -> 64 bits, each counted as two 32-bit
 # multiplies (its low and high halves), plus one 32-bit m = t0 * inv.  A
-# squaring needs only the 36 distinct a_i*a_j of a*a (8 * 9 / 2) beside the
-# 64 of the reduction; the bound counts that least work, though
-# field.cuh::fe_sqr runs the full product today.
+# squaring (field.cuh::fe_sqr) takes only the 36 distinct a_i*a_j of a*a
+# (28 cross products and 8 squares) beside the 64 of the reduction.
 MUL32_PER_MONT = 8 * (8 + 8) * 2 + 8
 MUL32_PER_SQR = (36 + 64) * 2 + 8
 
@@ -68,10 +79,39 @@ ADD = _mul32(11, 5)       # pt_add (add-2007-bl), generic lane
 ADD_PRE = _mul32(6, 2)    # pt_add up to the u1 == u2 test
 DBL = _mul32(2, 5)        # pt_dbl (dbl-2009-l)
 POINT_BYTES = 96          # (3, 8) int32
+# registers a thread of any kernel may take (4 blocks of 128 threads an SM),
+# with no spills
+MAX_REGISTERS = 128
+# launches of the add kernel's entries (fold_add, fold_add_any,
+# fold_add_tree, fold_horner) allowed per warm RSA k=15 proof and per msm()
+ADD_KERNEL = ("fold_add", "fold_add_any", "fold_add_tree", "fold_horner")
+ADD_LAUNCHES_PER_PROOF = 100
+ADD_LAUNCHES_PER_MSM = 4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _issue_bound(sass: dict, card: "Card", lanes: int) -> dict:
+    """The least time fold_add's instructions take at `lanes` lanes, from
+    its SASS counts (phase 1): a generic lane runs the kernel's body once
+    (its untaken branches counted too; fe_sqr is inlined there) and the
+    function the body calls most, fe_mul, at each of its call sites.
+    issue_ms: every instruction at ISSUE_PER_SM_CLOCK warp instructions an
+    SM a clock; imad_ms: the IMAD ones at IMAD_PER_SM_CLOCK / 32.  Both at
+    the max SM clock, so both are lower bounds."""
+    body, *called = sass["fold_add_kernel"][0]["parts"]
+    mul = max(called, key=lambda p: p["body_calls"])
+    per_lane = {k: body[k] + mul["body_calls"] * mul[k]
+                for k in ("instructions", "imad", "imad_wide")}
+    warps = -(-lanes // 32)
+    clocks = card.sms * card.sm_hz
+    return {"sass_per_lane": per_lane, "fe_mul_calls": mul["body_calls"],
+            "issue_ms": warps * per_lane["instructions"]
+            / (clocks * ISSUE_PER_SM_CLOCK) * 1e3,
+            "imad_ms": warps * per_lane["imad"]
+            / (clocks * IMAD_PER_SM_CLOCK / 32) * 1e3}
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -218,10 +258,103 @@ def _mixed_case(g, table, scal, P: int, C: int, card: "Card"):
     return acc, bound
 
 
+def _tree_case(g, G: int, W: int, dev):
+    """(acc, mul32) for a fold_add_tree check of G groups of W lanes: group
+    0 holds a doubling pair (lanes 0 and W/2), an inverse pair (1 and 1 +
+    W/2), an identity p (lane 2) and an identity q (3 + W/2).  mul32 counts
+    the products these lanes need: W - 1 adds a group, generic but for
+    those four and the second-round add of the inverse pair's identity."""
+    from halo2tpu_torch.fields import jfield
+    acc = _rand_points(g, G * W, dev)
+    h = W // 2
+    acc[h] = acc[0]                                       # doubling
+    acc[1 + h] = acc[1]                                   # inverse
+    acc[1 + h, 1] = jfield.neg(jfield.FQ, acc[1, 1])
+    acc[2, 2] = 0                                         # p identity
+    acc[3 + h, 2] = 0                                     # q identity
+    return acc, (G * (W - 1) - 5) * ADD + (ADD_PRE + DBL) + ADD_PRE
+
+
+def _horner_case(g, B: int, P: int, times: int, dev):
+    """(partials, mul32) for a fold_horner check: (B, P, 3, 8) random
+    points; lane 0's partials all the identity, lane 1's top 3 planes and
+    every fifth plane.  mul32: every doubling (no branch), and an add for
+    each identity-free partial after a lane's first (the first add, onto
+    the identity, and adds of an identity partial take no product)."""
+    parts = _rand_points(g, B * P, dev).reshape(B, P, 3, 8)
+    parts[0, :, 2] = 0
+    parts[1, -3:, 2] = 0
+    parts[1, ::5, 2] = 0
+    live = (parts[:, :, 2] != 0).any(dim=-1).sum(dim=1)       # (B,)
+    adds = int((live - 1).clamp(min=0).sum())
+    return parts, B * P * times * DBL + adds * ADD
+
+
+def _rows_case(g, B: int, C: int, card: "Card", dev):
+    """(acc, points, scalars, bound, extra) for a fold_mixed_tiled_rows
+    check at msm()'s shape: n = 2^15 bases (base n - 1 the identity), B
+    random scalar vectors (bits 252-253 clear), 254 * B * C lanes.  512
+    lanes each whose acc equals, negates or lacks (identity) the base of
+    their first live row (bit set, base not the identity).  The bound
+    counts a mixed add per live (lane, row), the pre-test products and a
+    doubling for equal lanes, the pre-test products for inverse lanes (whose
+    next live row then costs nothing), none for the identity lanes' first
+    add; extra holds the live adds and the adds that warps run (32 x their
+    busiest lane's count, summed)."""
+    import torch
+    from halo2tpu_torch.fields import jfield
+    from halo2tpu_torch.ops.msm import SCALAR_BITS
+    n = 1 << 15
+    rows = n // C
+    points = _rand_points(g, n, dev)
+    points[:, 2] = jfield.FQ.const("one_mont", dev)
+    points[n - 1, 2] = 0
+    scalars = _rand_fe(g, B * n, dev).reshape(B, n, 8)
+    L = SCALAR_BITS * B * C
+    acc = _rand_points(g, L, dev)
+    lane = torch.arange(L, device=dev)
+    c = lane % C
+    bit, b = (lane // C) // B, (lane // C) % B
+    first = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    count = torch.zeros(L, dtype=torch.int64, device=dev)
+    for r in range(rows - 1, -1, -1):
+        word = scalars[b, r * C + c, bit // 32].to(torch.int64) & 0xFFFFFFFF
+        live = (((word >> (bit % 32)) & 1) == 1) & (points[r * C + c, 2]
+                                                   != 0).any(dim=-1)
+        first = torch.where(live, r, first)
+        count += live
+    base = points[(first * C + c).clamp(min=0)]
+    sel = {off: lane[(lane % 7 == off) & (first >= 0)][:512]
+           for off in range(3)}
+    acc[sel[0]] = base[sel[0]]                                  # equal
+    acc[sel[1]] = base[sel[1]]                                  # inverse
+    acc[sel[1], 1] = jfield.neg(jfield.FQ, base[sel[1], 1])
+    acc[sel[2], 2] = 0                                          # identity
+    adds = int(count.sum())
+    later = int((count[sel[1]] > 1).sum())
+    mul32 = ((adds - 1536 - later) * MIXED_ADD + 512 * (MIXED_PRE + DBL)
+             + 512 * MIXED_PRE)
+    bound = card.bound(2 * L * POINT_BYTES + scalars.numel() * 4
+                       + n * POINT_BYTES, mul32)
+    warp_adds = 32 * int(count.reshape(-1, 32).max(dim=1).values.sum())
+    return acc, points, scalars, bound, {"adds": adds, "warp_adds": warp_adds}
+
+
+def _chain_case(cases: dict, name: str, fn, want, iters: int) -> None:
+    """Queue fn(), the chain of launches an entry replaces, for the timing
+    rounds after holding its result bitwise to the entry's (`want`)."""
+    err = _max_abs_err(fn(), want)
+    if err != 0:
+        raise AssertionError(f"{name}: the chain != the entry (max |diff| "
+                             f"{err})")
+    cases[name] = (fn, iters)
+
+
 def phase_kernels(report: dict, card: Card) -> None:
     import torch
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.fields.bn254 import Q, R
+    from halo2tpu_torch.curves.jpoint import identity_points
     from halo2tpu_torch.ops import cuda_ec, cuda_field
     from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
 
@@ -277,6 +410,16 @@ def phase_kernels(report: dict, card: Card) -> None:
               lambda s=spec, x=a: cuda_field.mont_mul(s, x, x),
               lambda s=spec, x=a: cuda_field.mont_mul_plain(s, x, x),
               1000, card.bound(2 * lanes * 32, lanes * MUL32_PER_SQR),
+              lanes=lanes)
+    # and at the two lane counts a warm proof launches most (phase 4's
+    # histogram: 32,768 lanes and one lane), launched back to back through
+    # the wrapper as the proof launches them
+    for lanes in (32768, 1):
+        a, b = _rand_fe(g, lanes, dev), _rand_fe(g, lanes, dev)
+        check("mont_mul", f"mont_mul fr L{lanes}",
+              lambda x=a, y=b: cuda_field.mont_mul(jfield.FR, x, y),
+              lambda x=a, y=b: cuda_field.mont_mul_plain(jfield.FR, x, y),
+              2000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
               lanes=lanes)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
@@ -351,6 +494,12 @@ def phase_kernels(report: dict, card: Card) -> None:
         pass
     else:
         raise AssertionError("fold_add took an unaligned lane count")
+    # and at 32,768 lanes, the first round of a warm proof's 256 x 256 tail
+    # (before fold_add_tree, a lanewise fold_add launch)
+    pw, qw, mul32 = _add_pairs(32768, dev, g)
+    check("fold_add", "fold_add L32768", lambda: cuda_ec.fold_add(pw, qw),
+          lambda: cuda_ec.fold_add_plain(pw, qw), 500,
+          card.bound(3 * 32768 * POINT_BYTES, mul32), lanes=32768)
 
     # fold_add_any at an unaligned lane count, same special lanes;
     # fold_dbl_any at a window-table-build width with times=1 (no branch:
@@ -371,14 +520,93 @@ def phase_kernels(report: dict, card: Card) -> None:
               card.bound(2 * Ld * POINT_BYTES, Ld * times * DBL),
               lanes=Ld, times=times)
 
+    # fold_add_tree at the warm proof's tail shapes (G groups x width: the
+    # 65,536-lane fold_mixed launches at C = 256, 1024 and 2048, and the
+    # 98,304-lane one) and msm()'s (2032 x 256: two lanewise rounds, then
+    # one tree launch), each also timed against the chain of lanewise add
+    # launches it replaces
+    def chain_tree(acc, G, W):
+        while W > 1:
+            a4 = acc.reshape(G, W, 3, 8)
+            acc = cuda_ec.fold_add_any(a4[:, :W // 2].reshape(-1, 3, 8),
+                                       a4[:, W // 2:].reshape(-1, 3, 8))
+            W //= 2
+        return acc
+
+    for G, W, iters in ((256, 256, 200), (64, 1024, 200), (32, 2048, 200),
+                        (96, 1024, 200), (SCALAR_BITS * Bm, C, 100)):
+        acc, mul32 = _tree_case(g, G, W, dev)
+        name = f"fold_add_tree {G}x{W}"
+        check("fold_add_tree", name,
+              lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree(a, G, W),
+              lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree_plain(a, G, W),
+              iters, card.bound((G * W + G) * POINT_BYTES, mul32),
+              plain_runs=1, groups=G, width=W, chain_case=f"{name} chain")
+        _chain_case(cases, f"{name} chain",
+                    lambda a=acc, G=G, W=W: chain_tree(a, G, W),
+                    cuda_ec.fold_add_tree(acc, G, W), iters)
+
+    # msm()'s tail also with every round in the tree kernel (one launch, no
+    # lanewise round of ADD_WAVE adds or more): the route the wave rule is
+    # held against
+    def tree_only(acc, G, W):
+        wave, cuda_ec.ADD_WAVE = cuda_ec.ADD_WAVE, G * W
+        try:
+            return cuda_ec.fold_add_tree(acc, G, W)
+        finally:
+            cuda_ec.ADD_WAVE = wave
+
+    checks["fold_add_tree"][-1]["alt_case"] = f"{name} one launch"
+    _chain_case(cases, f"{name} one launch",
+                lambda a=acc, G=G, W=W: tree_only(a, G, W),
+                cuda_ec.fold_add_tree(acc, G, W), iters)
+
+    # fold_horner at the windowed combine (B = 8, 32 digit planes, 8
+    # doublings a plane) and msm()'s (254 bit planes, 1 doubling), each
+    # also timed against its chain of fold_dbl_any and fold_add_any launches
+    def chain_horner(parts, times):
+        acc = identity_points((parts.shape[0],), dev)
+        for d in range(parts.shape[1] - 1, -1, -1):
+            acc = cuda_ec.fold_add_any(cuda_ec.fold_dbl_any(acc, times),
+                                       parts[:, d].contiguous())
+        return acc
+
+    for P, times, iters in ((32, 8, 20), (SCALAR_BITS, 1, 10)):
+        parts, mul32 = _horner_case(g, Bm, P, times, dev)
+        name = f"fold_horner B{Bm} P{P} x{times}"
+        check("fold_horner", name,
+              lambda p=parts, t=times: cuda_ec.fold_horner(p, t),
+              lambda p=parts, t=times: cuda_ec.fold_horner_plain(p, t),
+              iters, card.bound((Bm * P + Bm) * POINT_BYTES, mul32),
+              plain_runs=1, lanes=Bm, planes=P, times=times,
+              chain_case=f"{name} chain")
+        _chain_case(cases, f"{name} chain",
+                    lambda p=parts, t=times: chain_horner(p, t),
+                    cuda_ec.fold_horner(parts, times), max(2, iters // 4))
+
+    # fold_mixed_tiled_rows at msm()'s full shape, all 128 rows in one
+    # launch, against one plain run of the same rows
+    acc_r, pts_r, sc_r, bound, extra = _rows_case(g, Bm, C, card, dev)
+    n_r = pts_r.shape[0]
+    check("fold_mixed_tiled_rows", "fold_mixed_tiled_rows",
+          lambda: cuda_ec.fold_mixed_tiled_rows(acc_r, pts_r, sc_r, C, 0,
+                                                n_r // C),
+          lambda: cuda_ec.fold_mixed_tiled_rows_plain(acc_r, pts_r, sc_r, C,
+                                                      0, n_r // C),
+          5, bound, plain_runs=1, lanes=acc_r.shape[0], C=C, rows=n_r // C,
+          **extra)
+
     log(f"kernels: every kernel bitwise equal to its plain version; timing "
         f"{len(cases)} cases, {ROUNDS} rounds in turns")
     times = _time_in_turns(cases)
     replaces = {"mont_mul": "halo2tpu/ops/pallas_field.py:347",
                 "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
                 "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
+                "fold_mixed_tiled_rows": "halo2tpu/ops/pallas_ec.py:291",
                 "fold_add": "halo2tpu/ops/pallas_ec.py:240",
                 "fold_add_any": "halo2tpu/ops/pallas_ec.py:341",
+                "fold_add_tree": "halo2tpu/ops/pallas_ec.py:326",
+                "fold_horner": "halo2tpu/ops/msm.py:312",
                 "fold_dbl_any": "halo2tpu/ops/pallas_ec.py:375"}
     for name, rows in checks.items():
         for row in rows:
@@ -387,6 +615,24 @@ def phase_kernels(report: dict, card: Card) -> None:
                 f"of {ROUNDS}, {row['ms_min']:.4f}-{row['ms_max']:.4f}), "
                 f"plain {row['plain_ms']:.4f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            if "chain_case" in row:
+                ch = times[row.pop("chain_case")]
+                row.update(chain_ms=ch["ms"], chain_ms_min=ch["ms_min"],
+                           chain_ms_max=ch["ms_max"])
+                log(f"kernel {row['case']}: the chain of launches it "
+                    f"replaces {ch['ms']:.4f} ms ({ch['ms_min']:.4f}-"
+                    f"{ch['ms_max']:.4f})")
+                if row["ms"] > ch["ms"]:
+                    raise AssertionError(f"{row['case']}: slower than the "
+                                         "chain of launches it replaces")
+            if "alt_case" in row:
+                alt = times[row.pop("alt_case")]
+                row.update(one_launch_ms=alt["ms"],
+                           one_launch_ms_min=alt["ms_min"],
+                           one_launch_ms_max=alt["ms_max"])
+                log(f"kernel {row['case']}: in one tree launch "
+                    f"{alt['ms']:.4f} ms ({alt['ms_min']:.4f}-"
+                    f"{alt['ms_max']:.4f})")
         main = rows[0]                  # the main path's shape comes first
         source = ("halo2tpu_torch/csrc/mont_mul.cu" if name == "mont_mul"
                   else "halo2tpu_torch/csrc/ec_fold.cu")
@@ -409,16 +655,18 @@ def _wrappers() -> dict:
     return {"mont_mul": cuda_field.mont_mul,
             "fold_mixed": cuda_ec.fold_mixed,
             "fold_mixed_tiled": cuda_ec.fold_mixed_tiled,
+            "fold_mixed_tiled_rows": cuda_ec.fold_mixed_tiled_rows,
             "fold_add": cuda_ec.fold_add,
             "fold_add_any": cuda_ec.fold_add_any,
+            "fold_add_tree": cuda_ec.fold_add_tree,
+            "fold_horner": cuda_ec.fold_horner,
             "fold_dbl_any": cuda_ec.fold_dbl_any}
 
 
 def _zero_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
-        if hasattr(w, "shapes"):
-            w.shapes.clear()
+        w.shapes.clear()
 
 
 def _counts() -> dict:
@@ -426,19 +674,24 @@ def _counts() -> dict:
 
 
 def _shapes() -> dict:
-    """Each point kernel's shape histogram, a copy: name -> Counter."""
-    return {name: w.shapes.copy() for name, w in _wrappers().items()
-            if hasattr(w, "shapes")}
+    """Each kernel's shape histogram, a copy: name -> Counter."""
+    return {name: w.shapes.copy() for name, w in _wrappers().items()}
 
 
-SHAPE_KEYS = {"fold_mixed": "lanes x C x rows",
+SHAPE_KEYS = {"mont_mul": "lanes", "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
-              "fold_add": "lanes", "fold_add_any": "lanes"}
+              "fold_mixed_tiled_rows": "lanes x C x rows",
+              "fold_add": "lanes", "fold_add_any": "lanes",
+              "fold_add_tree": "groups x width x out_width",
+              "fold_horner": "lanes x planes x times"}
 # the __global__ function (csrc/, _build.KERNELS) behind each wrapper
 KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
+             "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
              "fold_add": "fold_add_kernel", "fold_add_any": "fold_add_kernel",
+             "fold_add_tree": "fold_add_tree_kernel",
+             "fold_horner": "fold_horner_kernel",
              "fold_dbl_any": "fold_dbl_kernel"}
 
 
@@ -598,6 +851,11 @@ def phase_slice(report: dict, cache_dir: str):
     if narrow:
         raise AssertionError(f"slice: fold_mixed launches under "
                              f"{LANE_TARGET} lanes: {narrow}")
+    adds = sum(per_warm[k] for k in ADD_KERNEL)
+    if adds > ADD_LAUNCHES_PER_PROOF or per_warm["fold_dbl_any"]:
+        raise AssertionError(f"slice: {adds} add-kernel and "
+                             f"{per_warm['fold_dbl_any']} fold_dbl_any "
+                             "launches in a warm proof")
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
     log(f"slice: launches over keygen + 3 proofs {json.dumps(launches)}")
     log(f"slice: launches per warm proof {json.dumps(per_warm)}")
@@ -609,7 +867,7 @@ def phase_slice(report: dict, cache_dir: str):
         raise AssertionError("slice: cold proof does not verify")
     _record_path(report, "rsa_k15_keygen_and_3_proofs", launches,
                  ("mont_mul", "fold_mixed", "fold_add", "fold_add_any",
-                  "fold_dbl_any"))
+                  "fold_add_tree", "fold_horner", "fold_dbl_any"))
     for name, n in per_warm.items():
         report[name]["launches_per_warm_proof"] = n
         if name in warm_shapes:
@@ -680,10 +938,17 @@ def phase_msm(report: dict, srs, eng) -> None:
     log(f"msm: peak CUDA memory {peak / 2**30:.2f} GiB, of which "
         f"{resident / 2**30:.2f} GiB was resident before the call")
     log(f"msm: launches {json.dumps(launches)}")
-    # mont_mul: device_to_affine's one Montgomery decode
+    adds = sum(launches[k] for k in ADD_KERNEL)
+    if (launches["fold_mixed_tiled_rows"] + launches["fold_mixed_tiled"] != 1
+            or adds > ADD_LAUNCHES_PER_MSM or launches["fold_dbl_any"]):
+        raise AssertionError(f"msm: expected one row-fold launch, at most "
+                             f"{ADD_LAUNCHES_PER_MSM} add-kernel launches and "
+                             "no fold_dbl_any")
+    # mont_mul: device_to_affine's one Montgomery decode; fold_add: the
+    # tail's two lanewise rounds of at least a wave of adds
     _record_path(report, "msm_n32768_b8", launches,
-                 ("mont_mul", "fold_mixed_tiled", "fold_add", "fold_add_any",
-                  "fold_dbl_any"))
+                 ("mont_mul", "fold_mixed_tiled_rows", "fold_add",
+                  "fold_add_tree", "fold_horner"))
 
     m = 256
     small = [v[:m] for v in vectors]
@@ -691,10 +956,9 @@ def phase_msm(report: dict, srs, eng) -> None:
     if got != [G1.msm(srs.g_lagrange[:m], v) for v in small]:
         raise AssertionError("msm: n = 256 differs from the host G1.msm")
     log(f"msm: n = {m}, B = {B}: equal to the host G1.msm")
-    report["fold_mixed_tiled"].update(msm_ms=msm_s * 1e3,
-                                      windowed_commit_ms=win_s * 1e3,
-                                      msm_peak_gib=peak / 2**30,
-                                      msm_resident_gib=resident / 2**30)
+    report["fold_mixed_tiled_rows"].update(
+        msm_ms=msm_s * 1e3, windowed_commit_ms=win_s * 1e3,
+        msm_peak_gib=peak / 2**30, msm_resident_gib=resident / 2**30)
 
 
 def _loaded_reference() -> list:
@@ -725,6 +989,20 @@ def main() -> int:
             "bytes shared")
         for line in res["lines"]:
             log(f"  {line}")
+    over = {k: (r.get("registers"), r.get("spill_bytes"))
+            for k, r in _build.resources.items()
+            if r.get("registers", 0) > MAX_REGISTERS or r.get("spill_bytes")}
+    if over:
+        raise AssertionError(f"build: kernels over {MAX_REGISTERS} registers "
+                             f"or spilling: {over}")
+    sass = _build.sass()
+    for kernel, copies in sorted(sass.items()):
+        for c in copies:
+            log(f"build: {kernel}: SASS {c['instructions']} instructions, "
+                f"{c['imad']} IMAD, {c['imad_wide']} IMAD.WIDE; body and "
+                "called functions (calls from the body): " + "; ".join(
+                    f"{p['instructions']}, {p['imad']}, {p['imad_wide']} "
+                    f"({p['body_calls']})" for p in c["parts"]))
     card = Card()
     log(f"bound: {card.sms} SMs x {IMAD_PER_SM_CLOCK} x "
         f"{card.sm_hz / 1e6:.0f} MHz = {card.mul32_per_s:.4g} 32-bit "
@@ -740,6 +1018,14 @@ def main() -> int:
             res = _build.resources[KERNEL_OF[name]]
             entry["registers"] = res["registers"]
             entry["spill_bytes"] = res["spill_bytes"]
+            entry["sass"] = sass[KERNEL_OF[name]]
+        add = report["fold_add"]
+        add.update(_issue_bound(sass, card, add["cases"][0]["lanes"]))
+        log(f"kernel fold_add: {add['sass_per_lane']} SASS instructions a "
+            f"generic lane ({add['fe_mul_calls']} fe_mul calls); at "
+            f"{add['cases'][0]['lanes']} lanes the issue "
+            f"takes at least {add['issue_ms']:.4f} ms, the IMAD pipe "
+            f"{add['imad_ms']:.4f} ms, against {add['ms']:.4f} ms measured")
         phase_golden()
         srs, eng = phase_slice(report, cache_dir)
         phase_msm(report, srs, eng)

@@ -7,7 +7,8 @@ into `halo2tpu_torch/build/`.  The library is loaded with ctypes.  A failed
 build or load raises: there is no fallback.
 
 ptxas reports each kernel's registers, stack and spills (`-Xptxas -v`); the
-report is kept beside the library and parsed into `resources`.
+report is kept beside the library and parsed into `resources`.  `sass()`
+counts each kernel's machine instructions (`cuobjdump -sass`).
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0.
@@ -30,7 +31,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # the __global__ functions of csrc/, as ptxas names them (mangled)
 KERNELS = ("mont_mul_kernel", "fold_mixed_kernel", "fold_mixed_tiled_kernel",
-           "fold_add_kernel", "fold_dbl_kernel")
+           "fold_mixed_tiled_rows_kernel", "fold_add_kernel",
+           "fold_add_tree_kernel", "fold_dbl_kernel", "fold_horner_kernel")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -41,11 +43,16 @@ _SIGNATURES = {
     "h2_fold_mixed": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _P,
                       _P],
     "h2_fold_mixed_tiled": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "h2_fold_mixed_tiled_rows": [_P, _P, _P, _P, _I64, _I32, _I32, _I64,
+                                 _I32, _I32, _P, _P],
     "h2_fold_add": [_P, _P, _P, _I64, _P, _P],
+    "h2_fold_add_tree": [_P, _P, _I64, _I32, _I32, _P, _P],
     "h2_fold_dbl": [_P, _P, _I64, _I32, _P, _P],
+    "h2_fold_horner": [_P, _P, _I32, _I32, _I32, _P, _P],
 }
 
 _lib = None
+library: str | None = None           # path of the loaded library
 build_seconds: float | None = None   # wall time of this process's build
 resources: dict = {}                 # kernel -> parse_ptxas() entry
 
@@ -78,12 +85,8 @@ def parse_ptxas(text: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$.]+)'?", line)
         if m:
-            cur = next((k for k in KERNELS if f"{len(k)}{k}" in m.group(1)),
-                       None)
+            cur = _demangle(m.group(1), KERNELS)
             if cur is not None:
-                flag = re.search(f"{len(cur)}{cur}ILb([01])E", m.group(1))
-                if flag:
-                    cur += "<true>" if flag.group(1) == "1" else "<false>"
                 out.setdefault(cur, {"lines": []})
         if cur is None:
             continue
@@ -103,6 +106,76 @@ def parse_ptxas(text: str) -> dict:
             s = re.search(r"(\d+) bytes smem", line)
             entry["smem_bytes"] = int(s.group(1)) if s else 0
     return out
+
+
+def _demangle(mangled: str, names) -> str | None:
+    """The name of `names` that a mangled symbol holds (its length-prefixed
+    form), with `<true>` / `<false>` for a template on one bool; else
+    None."""
+    name = next((k for k in names if f"{len(k)}{k}" in mangled), None)
+    if name is not None:
+        flag = re.search(f"{len(name)}{name}ILb([01])E", mangled)
+        if flag:
+            name += "<true>" if flag.group(1) == "1" else "<false>"
+    return name
+
+
+def parse_sass(text: str) -> dict:
+    """`cuobjdump -sass` output -> {kernel: [copy, ...]} for the kernels of
+    KERNELS.  A copy: its "instructions" (every one but NOP, the padding
+    after the last branch), "imad" (those on the integer multiply-add pipe:
+    IMAD with any suffix, IMAD.MOV included) and "imad_wide" (IMAD.WIDE,
+    32 x 32 -> 64 bits), and "parts": the kernel's body, then each device
+    function it calls out of line (ptxas puts them after the body in the
+    kernel's own code, from each CALL's target address), with the same
+    counts and "body_calls", the CALL sites in the body that reach it."""
+    out: dict = {}
+    copies = []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = _demangle(m.group(1), KERNELS)
+            if name is not None:
+                copies.append((name, []))
+            else:
+                copies.append((None, None))
+            continue
+        m = re.match(r"\s*/\*([0-9a-fA-F]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(?:\s+(0x[0-9a-fA-F]+))?", line)
+        if not copies or copies[-1][1] is None or not m or (
+                m.group(2) == "NOP"):
+            continue
+        target = (int(m.group(3), 16) if m.group(2).startswith("CALL")
+                  and m.group(3) else None)
+        copies[-1][1].append((int(m.group(1), 16), m.group(2), target))
+    for name, ins in copies:
+        if name is None:
+            continue
+        starts = sorted({0} | {t for _, _, t in ins if t is not None})
+        parts = [{"address": a, "body_calls": 0, "instructions": 0,
+                  "imad": 0, "imad_wide": 0} for a in starts]
+        for addr, op, target in ins:
+            part = parts[max(i for i, a in enumerate(starts) if a <= addr)]
+            part["instructions"] += 1
+            part["imad"] += op.startswith("IMAD")
+            part["imad_wide"] += op.startswith("IMAD.WIDE")
+            if target is not None and part is parts[0]:
+                parts[starts.index(target)]["body_calls"] += 1
+        copy = {k: sum(p[k] for p in parts)
+                for k in ("instructions", "imad", "imad_wide")}
+        copy["parts"] = parts
+        out.setdefault(name, []).append(copy)
+    return out
+
+
+def sass() -> dict:
+    """parse_sass() of the loaded library, through the toolkit's
+    cuobjdump (beside nvcc)."""
+    lib()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, check=True)
+    return parse_sass(res.stdout)
 
 
 def _compile(so: str, srcs: list[str]) -> str:
@@ -143,7 +216,7 @@ def _compile(so: str, srcs: list[str]) -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built from the checkout's sources on the
     first call (the file name carries a hash of the sources and flags)."""
-    global _lib, build_seconds, resources
+    global _lib, library, build_seconds, resources
     if _lib is not None:
         return _lib
     srcs = _sources()
@@ -168,7 +241,7 @@ def lib() -> ctypes.CDLL:
         fn = getattr(loaded, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = loaded
+    _lib, library = loaded, so
     return _lib
 
 

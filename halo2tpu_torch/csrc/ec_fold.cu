@@ -13,9 +13,21 @@
 //                    MSM (ops/msm.py::_pallas_row_step); lane l adds base
 //                    l mod C of a small (C, 3, 8) array where its mask byte
 //                    is set, the same madd-2007-bl body and doubling patch;
+//   fold_mixed_tiled_rows <- the row loop of ops/msm.py::_bit_partials_pallas
+//                    (one _pallas_row_step, i.e. one _mixed_tiled_kernel
+//                    launch, a row) in one launch: lane (bit * B + b) * C + c
+//                    walks only the rows where that bit of its scalar is set
+//                    and reads the bit itself, so no mask is built;
 //   fold_add_any  <- pallas_ec.py::fold_add_any (_add_kernel -> _padd_core);
 //                    the same entry serves pallas_ec.py::fold_add, whose
 //                    L % 512 == 0 rule the Python wrapper checks;
+//   fold_add_tree <- the MSM tails' chains of fold_add_any launches
+//                    (ops/msm.py, _partials_fused and _bit_partials_pallas):
+//                    up to 8 halving rounds of the same add (_padd_core) in
+//                    one launch;
+//   fold_horner   <- ops/msm.py::_horner_device_w / _horner_device (XLA
+//                    fori_loops of pdbl and padd): the whole Horner combine
+//                    of a batch lane in one thread;
 //   fold_dbl_any  <- pallas_ec.py::fold_dbl_any (_dbl_kernel -> _pdbl_lm).
 //
 // Bound on the H100: 32-bit integer multiply throughput, like mont_mul (a
@@ -36,6 +48,29 @@
 // fold_mixed_tiled is one row per launch, as the Pallas kernel is: it reads
 // and writes its accumulator once per row, and its C shared bases (24 KB at
 // C = 256) stay in L1 instead of being broadcast to every lane in memory.
+// fold_mixed_tiled_rows runs all rows in one launch under the same register
+// bound as fold_mixed, the accumulator in registers.  Random scalar bits
+// mask half of each warp's lanes on every row, so a row-by-row walk pays a
+// full mixed add on nearly every row; here each lane builds the mask of 32
+// rows from its scalar words and steps through its set rows only (__ffs),
+// so a warp runs as many adds as its busiest lane has set bits (about 76 of
+// 128 rows at random bits), in ascending row order as the chain did.  The
+// next set row is known one step ahead: its base is gathered into the same
+// two-stage cp.async ring as fold_mixed's.
+// The add, tree and Horner kernels fit 128 registers (4 blocks an SM,
+// 67,584 lanes a wave on 132 SMs) without spills because pt_add takes its
+// Z3 factor before the doubling test and keeps the doubling out of line;
+// they state only their block size: held to 4 blocks an SM as well, ptxas
+// chose 122 registers for the add kernel and a schedule 4% slower.
+// The MSM tails and the Horner combines are bound by latency and launches:
+// their rounds have fewer lanes than a wave, and each round was a launch.
+// fold_add_tree loads 256 lanes a block into shared memory and runs the
+// rounds there, one barrier a round, the adds of a round packed onto the
+// lowest threads so that deep rounds of several small groups still fill
+// warps; a tail of width <= 256 is one launch (two up to 65,536).
+// fold_horner keeps each batch lane's accumulator in one thread for all
+// planes: a serial chain of 256 doublings and 32 adds (or 254 and 254) that
+// launches once instead of twice a plane.
 #include "field.cuh"
 
 namespace {
@@ -85,6 +120,13 @@ __device__ __forceinline__ Pt pt_dbl(const Pt& p, const Modulus& M) {
   return r;
 }
 
+// pt_dbl out of line, for the rare doubling lanes of the adds: inlined
+// there it pushed pt_add's kernels and fold_mixed_tiled_rows past their
+// register bound.
+static __device__ __noinline__ Pt pt_dbl_call(const Pt p, const Modulus& M) {
+  return pt_dbl(p, M);
+}
+
 // acc + (x2, y2) for a lane whose point is valid (pallas_ec.py::
 // _padd_mixed_core, madd-2007-bl, with the doubling lanes patched).
 __device__ __forceinline__ Pt pt_add_mixed(const Pt& acc, const Fe& x2,
@@ -105,7 +147,8 @@ __device__ __forceinline__ Pt pt_add_mixed(const Pt& acc, const Fe& x2,
   if (fe_is_zero(h)) {
     // acc == P doubles (a silent Z3 = 0 would corrupt the fold);
     // acc == -P gives the identity
-    return fe_is_zero(s2y1) ? pt_dbl(acc, M) : pt_identity(M);
+    if (!fe_is_zero(s2y1)) return pt_identity(M);
+    return pt_dbl_call(acc, M);
   }
   const Fe r = fe_dbl(s2y1, M);
   const Fe zh = fe_add(acc.z, h, M);
@@ -135,19 +178,19 @@ __device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q,
   const Fe z2z2 = fe_sqr(q.z, M);
   const Fe u1 = fe_mul(p.x, z2z2, M);
   const Fe u2 = fe_mul(q.x, z1z1, M);
-  const Fe t1 = fe_mul(p.y, q.z, M);
-  const Fe t2 = fe_mul(q.y, p.z, M);
-  const Fe s1 = fe_mul(t1, z2z2, M);
-  const Fe s2 = fe_mul(t2, z1z1, M);
+  const Fe s1 = fe_mul(fe_mul(p.y, q.z, M), z2z2, M);
+  const Fe s2 = fe_mul(fe_mul(q.y, p.z, M), z1z1, M);
+  // (Z1 + Z2)^2 - Z1Z1 - Z2Z2 before the test, so that Z1Z1, Z2Z2 and Z2
+  // die here (wasted on the rare doubling and inverse lanes)
+  const Fe zw = fe_sub(fe_sub(fe_sqr(fe_add(p.z, q.z, M), M), z1z1, M),
+                       z2z2, M);
   if (fe_eq(u1, u2)) {
-    return fe_eq(s1, s2) ? pt_dbl(p, M) : pt_identity(M);
+    return fe_eq(s1, s2) ? pt_dbl_call(p, M) : pt_identity(M);
   }
   const Fe h = fe_sub(u2, u1, M);
   const Fe hh = fe_dbl(h, M);
-  const Fe zz = fe_add(p.z, q.z, M);
   const Fe rr = fe_dbl(fe_sub(s2, s1, M), M);
   const Fe i = fe_sqr(hh, M);
-  const Fe zzsq = fe_sqr(zz, M);
   const Fe r2 = fe_sqr(rr, M);
   const Fe j = fe_mul(h, i, M);
   const Fe v = fe_mul(u1, i, M);
@@ -155,16 +198,17 @@ __device__ __forceinline__ Pt pt_add(const Pt& p, const Pt& q,
   o.x = fe_sub(fe_sub(r2, j, M), fe_dbl(v, M), M);
   const Fe rvx = fe_mul(rr, fe_sub(v, o.x, M), M);
   const Fe s1j = fe_mul(s1, j, M);
-  o.z = fe_mul(fe_sub(fe_sub(zzsq, z1z1, M), z2z2, M), h, M);
+  o.z = fe_mul(zw, h, M);
   o.y = fe_sub(rvx, fe_dbl(s1j, M), M);
   return o;
 }
 
 constexpr int kThreads = 128;
-// Blocks of kThreads an SM must hold: caps the kernels below at 65,536 /
-// (4 * 128) = 128 registers a thread.
+// Blocks of kThreads an SM must hold: caps fold_mixed, fold_dbl_any and
+// fold_mixed_tiled_rows at 65,536 / (4 * 128) = 128 registers a thread.
 constexpr int kMinBlocks = 4;
 constexpr int kEntryChunks = 3 * H2_LIMBS / 4;   // 16-byte pieces of a point
+constexpr int kTreeLanes = 2 * kThreads;         // lanes a tree block sums
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -181,6 +225,38 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A point in shared memory as kEntryChunks 16-byte chunks, chunk k of point
+// i at buf[k * stride + i] (neighbouring points on neighbouring banks).
+__device__ __forceinline__ void fe_put(uint4* buf, int stride, int i,
+                                       const Fe& a) {
+  buf[i] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  buf[stride + i] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+__device__ __forceinline__ Fe fe_get(const uint4* buf, int stride, int i) {
+  const uint4 lo = buf[i];
+  const uint4 hi = buf[stride + i];
+  Fe r;
+  r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
+  r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
+  return r;
+}
+
+__device__ __forceinline__ void pt_put(uint4* buf, int stride, int i,
+                                       const Pt& p) {
+  fe_put(buf, stride, i, p.x);
+  fe_put(buf + 2 * stride, stride, i, p.y);
+  fe_put(buf + 4 * stride, stride, i, p.z);
+}
+
+__device__ __forceinline__ Pt pt_get(const uint4* buf, int stride, int i) {
+  Pt p;
+  p.x = fe_get(buf, stride, i);
+  p.y = fe_get(buf + 2 * stride, stride, i);
+  p.z = fe_get(buf + 4 * stride, stride, i);
+  return p;
 }
 
 // Lane l = g * C + c, g = plane * B + b.  For rows r in [r0, r1) the lane
@@ -273,15 +349,129 @@ __global__ void fold_mixed_tiled_kernel(const uint32_t* __restrict__ acc_in,
   pt_store(acc_out + l * 3 * H2_LIMBS, acc);
 }
 
-__global__ void fold_add_kernel(const uint32_t* __restrict__ p,
-                                const uint32_t* __restrict__ q,
-                                uint32_t* __restrict__ out, long long lanes,
-                                const __grid_constant__ Modulus M) {
+// Rows r in [r0, r1) of the bit-serial MSM: lane l = (bit * B + b) * C + c
+// adds points[r * C + c] where bit `bit` of scalars[b, r * C + c] is set
+// (scalars (B, n, 8) plain limbs); bases with Z = 0 leave acc as is.  Each
+// lane takes its set rows in ascending order, 32 rows of mask at a time.
+// The ring is fold_mixed's: a thread reads only the stage it copied into.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fold_mixed_tiled_rows_kernel(const uint32_t* __restrict__ acc_in,
+                             uint32_t* __restrict__ acc_out,
+                             const uint32_t* __restrict__ points,
+                             const uint32_t* __restrict__ scalars,
+                             long long lanes, int C, int B, long long n,
+                             int r0, int r1,
+                             const __grid_constant__ Modulus M) {
+  __shared__ uint4 ring[2][kEntryChunks][kThreads];
+  const int t = threadIdx.x;
+  const long long l = blockIdx.x * (long long)kThreads + t;
+  if (l >= lanes) return;
+  const long long g = l / C;
+  const int c = (int)(l - g * C);
+  const int bit = (int)(g / B);
+  const int b = (int)(g - (long long)bit * B);
+  const int shift = bit & 31;
+  const uint32_t* sc =
+      scalars + ((long long)b * n + c) * H2_LIMBS + (bit >> 5);
+  const long long row_words = (long long)C * H2_LIMBS;
+  int chunk = r0 - 32;   // first row of the chunk that `mask` covers
+  uint32_t mask = 0;     // its rows not taken yet whose bit is set
+  auto next_row = [&]() -> int {
+    while (mask == 0) {
+      chunk += 32;
+      if (chunk >= r1) return -1;
+#pragma unroll 8   // fully unrolled, the 32 loads in flight spilled
+      for (int i = 0; i < 32; i++) {
+        if (chunk + i < r1) {
+          mask |= ((__ldg(sc + (chunk + i) * row_words) >> shift) & 1u) << i;
+        }
+      }
+    }
+    const int i = __ffs(mask) - 1;
+    mask &= mask - 1;
+    return chunk + i;
+  };
+  auto fetch = [&](int r, int s) {
+    const uint4* e = reinterpret_cast<const uint4*>(
+        points + ((long long)r * C + c) * 3 * H2_LIMBS);
+#pragma unroll
+    for (int k = 0; k < kEntryChunks; k++) cp_async16(&ring[s][k][t], e + k);
+    cp_async_commit();
+  };
+  Pt acc = pt_load(acc_in + l * 3 * H2_LIMBS);
+  int r = next_row();
+  if (r >= 0) fetch(r, 0);
+  for (int s = 0; r >= 0; s ^= 1) {
+    const int next = next_row();
+    if (next >= 0) {
+      fetch(next, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const Pt e = pt_get(&ring[s][0][0], kThreads, t);
+    if (!fe_is_zero(e.z)) acc = pt_add_mixed(acc, e.x, e.y, M);
+    r = next;
+  }
+  pt_store(acc_out + l * 3 * H2_LIMBS, acc);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+                uint32_t* __restrict__ out, long long lanes,
+                const __grid_constant__ Modulus M) {
   const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   const Pt a = pt_load(p + l * 3 * H2_LIMBS);
   const Pt b = pt_load(q + l * 3 * H2_LIMBS);
   pt_store(out + l * 3 * H2_LIMBS, pt_add(a, b, M));
+}
+
+// Halving rounds of the add over groups of `width` lanes, down to
+// `out_width` lanes a group: round j adds lane i + w/2 into lane i (w the
+// width before the round), as the chain of lanewise launches did.  Output
+// lane s of group g, set j = g * out_width + s, is then the sum of the m =
+// width / out_width lanes s + k * out_width of the group, and the rounds
+// stay within that set.  A block takes kTreeLanes / m whole sets into
+// shared memory (kTreeLanes lanes, 24 KB); in each round the adds of all
+// its sets are packed onto its lowest threads (thread -> set t / h, k = t
+// mod h for h adds a set), so a round of few adds a set still fills whole
+// warps while the block has enough of them.  A thread reads and writes
+// only its own lane k of a round (lane k + h is left as it is), so one
+// barrier a round suffices.
+__global__ void __launch_bounds__(kThreads)
+fold_add_tree_kernel(const uint32_t* __restrict__ in,
+                     uint32_t* __restrict__ out, long long sets, int width,
+                     int out_width, const __grid_constant__ Modulus M) {
+  __shared__ uint4 lanes[kEntryChunks][kTreeLanes];
+  uint4* buf = &lanes[0][0];
+  const int t = threadIdx.x;
+  const int m = width / out_width;
+  const int per_block = kTreeLanes / m;
+  const long long j0 = (long long)blockIdx.x * per_block;
+  for (int q = t; q < kTreeLanes; q += kThreads) {
+    const long long j = j0 + q / m;
+    if (j < sets) {
+      const long long g = j / out_width;
+      const long long lane =
+          g * width + (j - g * out_width) + (long long)(q % m) * out_width;
+      pt_put(buf, kTreeLanes, q, pt_load(in + lane * 3 * H2_LIMBS));
+    }
+  }
+  __syncthreads();
+  for (int h = m >> 1; h > 0; h >>= 1) {
+    const int set = t / h;
+    if (set < per_block && j0 + set < sets) {
+      const int a = set * m + (t - set * h);
+      pt_put(buf, kTreeLanes, a,
+             pt_add(pt_get(buf, kTreeLanes, a), pt_get(buf, kTreeLanes, a + h),
+                    M));
+    }
+    __syncthreads();
+  }
+  if (t < per_block && j0 + t < sets) {
+    pt_store(out + (j0 + t) * 3 * H2_LIMBS, pt_get(buf, kTreeLanes, t * m));
+  }
 }
 
 // `times` chained doublings of each lane, in registers.
@@ -294,6 +484,23 @@ fold_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
   Pt a = pt_load(p + l * 3 * H2_LIMBS);
   for (int i = 0; i < times; i++) a = pt_dbl(a, M);
   pt_store(out + l * 3 * H2_LIMBS, a);
+}
+
+// Horner combine of batch lane b over partials (B, planes, 3, 8): from the
+// identity, top plane down, `times` doublings then acc + partials[b, d].
+__global__ void __launch_bounds__(kThreads)
+fold_horner_kernel(const uint32_t* __restrict__ partials,
+                   uint32_t* __restrict__ out, int B, int planes, int times,
+                   const __grid_constant__ Modulus M) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const uint32_t* part = partials + (long long)b * planes * 3 * H2_LIMBS;
+  Pt acc = pt_identity(M);
+  for (int d = planes - 1; d >= 0; d--) {
+    for (int i = 0; i < times; i++) acc = pt_dbl(acc, M);
+    acc = pt_add(acc, pt_load(part + d * 3 * H2_LIMBS), M);
+  }
+  pt_store(out + (long long)b * 3 * H2_LIMBS, acc);
 }
 
 unsigned blocks_for(long long lanes) {
@@ -327,6 +534,48 @@ extern "C" int h2_fold_mixed_tiled(const void* acc_in, void* acc_out,
                               (cudaStream_t)stream>>>(
         (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)pts_c,
         (const uint8_t*)bits, lanes, C, modulus_from_words(mod));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_fold_mixed_tiled_rows(const void* acc_in, void* acc_out,
+                                        const void* points,
+                                        const void* scalars, long long lanes,
+                                        int C, int B, long long n, int r0,
+                                        int r1, const uint32_t* mod,
+                                        void* stream) {
+  if (lanes > 0) {
+    fold_mixed_tiled_rows_kernel<<<blocks_for(lanes), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)points,
+        (const uint32_t*)scalars, lanes, C, B, n, r0, r1,
+        modulus_from_words(mod));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The wrapper keeps width / out_width a power of two in [2, kTreeLanes].
+extern "C" int h2_fold_add_tree(const void* in, void* out, long long groups,
+                                int width, int out_width, const uint32_t* mod,
+                                void* stream) {
+  const long long sets = groups * out_width;
+  const int per_block = kTreeLanes / (width / out_width);
+  if (sets > 0) {
+    fold_add_tree_kernel<<<(unsigned)((sets + per_block - 1) / per_block),
+                           kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, sets, width, out_width,
+        modulus_from_words(mod));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_fold_horner(const void* partials, void* out, int B,
+                              int planes, int times, const uint32_t* mod,
+                              void* stream) {
+  if (B > 0) {
+    fold_horner_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)partials, (uint32_t*)out, B, planes, times,
+        modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 """G1 point folds: the CUDA kernels (csrc/ec_fold.cu) and their plain torch
 versions.  Counterpart of halo2tpu/ops/pallas_ec.py:
 fold_mixed (windowed row steps, table gather fused), fold_mixed_tiled (one
-bit-serial row step), fold_add (tile-aligned) and fold_add_any (one add
-kernel), fold_dbl_any.
+bit-serial row step) and fold_mixed_tiled_rows (all of msm()'s row steps in
+one launch), fold_add (tile-aligned) and fold_add_any (one add kernel),
+fold_add_tree (the MSM tails' halving rounds of that add), fold_horner (the
+MSM Horner combine of halo2tpu/ops/msm.py), fold_dbl_any.
 
 Layout: a point batch is (L, 3, 8) int32, lane-major — each thread of a
 kernel loads its own 96 contiguous bytes.  The windowed table is
@@ -11,10 +13,13 @@ Montgomery 1, or 0 for the identity entries: digit 0 and padded bases).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors.  The plain versions are the curves/jpoint.py
-formulas (plain field multiply), on any device.  Beside its count of
+formulas (plain field multiply), on any device; the plain version of an
+entry that replaces a chain of launches is that chain.  Beside its count of
 launches, each wrapper keeps `shapes`, a histogram of the shapes it
-launched: (lanes, C, rows) for fold_mixed, (lanes, times) for fold_dbl_any,
-(lanes,) for the others.
+launched: (lanes, C, rows) for fold_mixed and fold_mixed_tiled_rows,
+(lanes, times) for fold_dbl_any, (groups, width, out_width) for
+fold_add_tree, (lanes, planes, times) for fold_horner, (lanes,) for the
+others.
 """
 from __future__ import annotations
 
@@ -160,6 +165,69 @@ fold_mixed_tiled.launches = 0
 fold_mixed_tiled.shapes = Counter()
 
 
+def bit_masks(scalar_rows, nbits: int):
+    """(B, C, 8) plain scalar limbs -> (nbits * B * C,) uint8 lane masks:
+    lane (bit * B + b) * C + c holds bit `bit` of scalar [b, c]."""
+    bit = torch.arange(nbits, device=scalar_rows.device)
+    words = u64(scalar_rows)[..., bit // 32]              # (B, C, nbits)
+    bits = (words >> (bit % 32)) & 1
+    return bits.permute(2, 0, 1).reshape(-1).to(torch.uint8)
+
+
+def fold_mixed_tiled_rows_plain(acc, points, scalars, C: int, r0: int,
+                                r1: int):
+    """Plain version of fold_mixed_tiled_rows: one fold_mixed_tiled_plain
+    step a row, with that row's bit masks."""
+    nbits = acc.shape[0] // (scalars.shape[0] * C)
+    for r in range(r0, r1):
+        acc = fold_mixed_tiled_plain(
+            acc, points[r * C:(r + 1) * C],
+            bit_masks(scalars[:, r * C:(r + 1) * C], nbits))
+    return acc
+
+
+def fold_mixed_tiled_rows(acc, points, scalars, C: int, r0: int, r1: int):
+    """Bit-serial MSM rows r in [r0, r1) in one launch: lane l = (bit * B +
+    b) * C + c adds points[r * C + c] where bit `bit` of scalars[b, r * C +
+    c] is set.  acc (L, 3, 8) Jacobian, L = nbits * B * C (nbits <= 256);
+    points (n, 3, 8) affine; scalars (B, n, 8) plain limbs.  Lane rules and
+    row order of fold_mixed_tiled, one row after another."""
+    _check_points("fold_mixed_tiled_rows", acc, points)
+    L, n = acc.shape[0], points.shape[0]
+    if scalars.dim() != 3 or scalars.shape[1:] != (n, NLIMB):
+        raise ValueError(f"fold_mixed_tiled_rows: scalars "
+                         f"{tuple(scalars.shape)} do not match {n} points")
+    B = scalars.shape[0]
+    if C <= 0 or n % C or B == 0 or L % (B * C) or L // (B * C) > 32 * NLIMB:
+        raise ValueError(f"fold_mixed_tiled_rows: L = {L} is not nbits * B * "
+                         f"C with nbits <= 256 (B = {B}, C = {C}, n = {n})")
+    if not 0 <= r0 <= r1 <= n // C:
+        raise ValueError(f"fold_mixed_tiled_rows: rows [{r0}, {r1}) outside "
+                         f"[0, {n // C}]")
+    if _on_cpu(acc, points, scalars):
+        return fold_mixed_tiled_rows_plain(acc, points, scalars, C, r0, r1)
+    from .._build import check
+    acc = acc.contiguous()
+    points = points.contiguous()
+    scalars = scalars.contiguous()
+    if points.data_ptr() % 16:
+        raise ValueError("fold_mixed_tiled_rows: the points must be 16-byte "
+                         "aligned (the kernel copies them in 16-byte pieces)")
+    out = torch.empty_like(acc)
+    lib, stream = _launch_args(acc)
+    check(lib.h2_fold_mixed_tiled_rows(
+        acc.data_ptr(), out.data_ptr(), points.data_ptr(),
+        scalars.data_ptr(), L, C, B, n, r0, r1, FQ.mod_words_ptr, stream),
+        "fold_mixed_tiled_rows")
+    fold_mixed_tiled_rows.launches += 1
+    fold_mixed_tiled_rows.shapes[(L, C, r1 - r0)] += 1
+    return out
+
+
+fold_mixed_tiled_rows.launches = 0
+fold_mixed_tiled_rows.shapes = Counter()
+
+
 # -- fold_add (tile-aligned entry) / fold_add_any / fold_dbl_any -----------
 
 ADD_TILE = 512   # pallas_ec.py::TILE: fold_add takes whole tiles of lanes
@@ -223,6 +291,116 @@ def fold_add_any(p, q):
 
 fold_add_any.launches = 0
 fold_add_any.shapes = Counter()
+
+
+# -- fold_add_tree: the MSM tails -------------------------------------------
+
+# Rounds of a tail with at least this many adds run as lanewise launches of
+# the add kernel: 512 blocks of 128 threads, about one wave on an H100's
+# 132 SMs (4 blocks an SM).  Smaller rounds go to fold_add_tree's kernel.
+# At msm()'s tail (2032 groups of 256) two lanewise rounds and one tree
+# launch beat one tree launch of all eight rounds, whose blocks hold one
+# group each and leave most warps idle after the first round
+# (chip_smoke.py phase 2 times both).
+ADD_WAVE = 1 << 16
+TREE_LANES = 256   # lanes one block of the tree kernel sums: 128 threads
+
+
+def _halve(acc, G: int, width: int, add):
+    """One round: lane i + width/2 of each group added into lane i."""
+    half = width // 2
+    a4 = acc.reshape(G, width, 3, NLIMB)
+    return add(a4[:, :half].reshape(G * half, 3, NLIMB),
+               a4[:, half:].reshape(G * half, 3, NLIMB))
+
+
+def fold_add_tree_plain(acc, G: int, width: int):
+    """Plain version of fold_add_tree: the chain of lanewise rounds."""
+    while width > 1:
+        acc = _halve(acc, G, width, fold_add_any_plain)
+        width //= 2
+    return acc
+
+
+def fold_add_tree(acc, G: int, width: int):
+    """(G * width, 3, 8) -> (G, 3, 8): each group of `width` lanes (a power
+    of two) summed by halving rounds, round j adding lane i + w/2 into lane
+    i of the previous round's w lanes (the MSM tails).  Rounds of at least
+    ADD_WAVE adds are lanewise fold_add_any launches (counted there); the
+    rest run in fold_add_tree launches of up to 8 rounds each (TREE_LANES
+    lanes a block), bitwise equal to the lanewise chain."""
+    _check_points("fold_add_tree", acc)
+    if (G <= 0 or width <= 0 or width & (width - 1)
+            or acc.shape[0] != G * width):
+        raise ValueError(f"fold_add_tree: {acc.shape[0]} lanes are not {G} "
+                         f"groups of a power of two {width}")
+    if _on_cpu(acc):
+        return fold_add_tree_plain(acc, G, width)
+    while width > 1 and G * width // 2 >= ADD_WAVE:
+        acc = _halve(acc, G, width, fold_add_any)
+        width //= 2
+    from .._build import check
+    lib, stream = _launch_args(acc)
+    while width > 1:
+        out_width = width // min(width, TREE_LANES)
+        acc = acc.contiguous()
+        out = torch.empty((G * out_width, 3, NLIMB), dtype=acc.dtype,
+                          device=acc.device)
+        check(lib.h2_fold_add_tree(acc.data_ptr(), out.data_ptr(), G, width,
+                                   out_width, FQ.mod_words_ptr, stream),
+              "fold_add_tree")
+        fold_add_tree.launches += 1
+        fold_add_tree.shapes[(G, width, out_width)] += 1
+        acc, width = out, out_width
+    return acc
+
+
+fold_add_tree.launches = 0
+fold_add_tree.shapes = Counter()
+
+
+# -- fold_horner: the MSM Horner combine ------------------------------------
+
+def fold_horner_plain(partials, times: int):
+    """Plain version of fold_horner: per plane, fold_dbl_any_plain `times`
+    times, then fold_add_any_plain."""
+    acc = jpoint.identity_points((partials.shape[0],), partials.device)
+    for d in range(partials.shape[1] - 1, -1, -1):
+        acc = fold_add_any_plain(fold_dbl_any_plain(acc, times),
+                                 partials[:, d].contiguous())
+    return acc
+
+
+def fold_horner(partials, times: int):
+    """(B, planes, 3, 8) -> (B, 3, 8): from the identity, top plane down,
+    acc = 2^times * acc + partials[:, d], one thread a batch lane in one
+    launch; bitwise equal to a fold_dbl_any(times) and a fold_add_any
+    launch a plane (ops/msm.py's Horner combines: times = 8 over 32 digit
+    planes, times = 1 over 254 bit planes)."""
+    if partials.dim() != 4 or partials.shape[2:] != (3, NLIMB) or (
+            partials.dtype != torch.int32):
+        raise ValueError(f"fold_horner: expected (B, planes, 3, 8) int32 "
+                         f"partials, got {tuple(partials.shape)} "
+                         f"{partials.dtype}")
+    if times < 1:
+        raise ValueError(f"fold_horner: times = {times} < 1")
+    if _on_cpu(partials):
+        return fold_horner_plain(partials, times)
+    from .._build import check
+    partials = partials.contiguous()
+    B, planes = partials.shape[0], partials.shape[1]
+    out = torch.empty((B, 3, NLIMB), dtype=partials.dtype,
+                      device=partials.device)
+    lib, stream = _launch_args(partials)
+    check(lib.h2_fold_horner(partials.data_ptr(), out.data_ptr(), B, planes,
+                             times, FQ.mod_words_ptr, stream), "fold_horner")
+    fold_horner.launches += 1
+    fold_horner.shapes[(B, planes, times)] += 1
+    return out
+
+
+fold_horner.launches = 0
+fold_horner.shapes = Counter()
 
 
 def fold_dbl_any_plain(p, times: int = 1):

@@ -3,11 +3,14 @@ torch version.  Counterpart of halo2tpu/ops/pallas_field.py.
 
 `mont_mul` launches the kernel for CUDA tensors and takes the plain version
 only for CPU tensors.  The plain version works on any device (chip_smoke.py
-compares the two on the card).
+compares the two on the card).  Beside its count of launches, `mont_mul`
+keeps `shapes`, a histogram of the lane counts it launched: (lanes,).
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -120,7 +123,9 @@ def mont_mul(spec, a, b):
     check(lib().h2_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                             spec.mod_words_ptr, stream), "mont_mul")
     mont_mul.launches += 1
+    mont_mul.shapes[(n,)] += 1
     return out
 
 
 mont_mul.launches = 0
+mont_mul.shapes = Counter()

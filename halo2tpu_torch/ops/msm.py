@@ -6,15 +6,17 @@ fixed across every commitment, so each base gets a 256-entry table of
 affine multiples w * P (built once per SRS, on the device), and a
 commitment walks 32 8-bit digit planes: lane (plane, batch, c) adds
 table[digit, r * C + c] for every row r (one fold_mixed launch covers all
-rows), a C -> 1 tree-fold (fold_add / fold_add_any) sums each group, and
-a Horner pass over the planes (fold_dbl_any, 8 doublings a launch, and
-fold_add_any) combines them.  C is chosen per call (fold_width) so that
-every launch over more than one row has at least LANE_TARGET lanes.
+rows), a C -> 1 tree-fold (fold_add_tree: one or two launches) sums each
+group, and a Horner pass over the planes (fold_horner, 8 doublings and an
+add a plane, one launch) combines them.  C is chosen per call (fold_width)
+so that every launch over more than one row has at least LANE_TARGET
+lanes.
 
 Bit-serial (msm(), no table): lane (bit * B + b) * C + c adds base r * C + c
-of row r where bit `bit` of scalars[b, r * C + c] is set, one
-fold_mixed_tiled launch per row of C bases; a C -> 1 tree-fold sums each
-(bit, batch) group and a Horner pass over the 254 bits combines them.
+of row r where bit `bit` of scalars[b, r * C + c] is set, every row of C
+bases in one fold_mixed_tiled_rows launch; a C -> 1 tree-fold sums each
+(bit, batch) group and a Horner pass over the 254 bits (one fold_horner
+launch) combines them.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ import torch
 from ..fields.bn254 import R
 from ..curves.jpoint import affine_to_device, device_to_affine, identity_points
 from ..fields.jfield import (FQ, batch_inv_scan, device_of, ints_to_limbs,
-                             is_zero, mont_mul, u64)
-from .cuda_ec import fold_add_any, fold_dbl_any, fold_mixed, fold_mixed_tiled
+                             is_zero, mont_mul)
+from .cuda_ec import (bit_masks, fold_add_any, fold_add_tree, fold_dbl_any,
+                      fold_horner, fold_mixed, fold_mixed_tiled_rows)
 
 SCALAR_BITS = 254
 WINDOW_BITS = 8
@@ -88,18 +91,6 @@ def precompute_window_table(points):
     return torch.stack(slots)
 
 
-def _tree_fold(acc, G: int, width: int):
-    """(G * width, 3, 8) -> (G, 3, 8): each group of `width` lanes summed by
-    halving rounds (the MSM tails)."""
-    while width > 1:
-        half = width // 2
-        a4 = acc.reshape(G, width, 3, 8)
-        acc = fold_add_any(a4[:, :half].reshape(G * half, 3, 8),
-                           a4[:, half:].reshape(G * half, 3, 8))
-        width = half
-    return acc
-
-
 def fold_width(planes: int, batch: int, npad: int,
                lane_target: int = LANE_TARGET,
                min_width: int = _FOLD_WIDTH) -> int:
@@ -122,19 +113,14 @@ def _partials_fused(table, scalar_limbs, C: int, P: int = NUM_WINDOWS):
     G = P * bsz
     acc = identity_points((G * C,), table.device)
     acc = fold_mixed(acc, table, scalar_limbs, C, P, 0, rows)
-    acc = _tree_fold(acc, G, C)
+    acc = fold_add_tree(acc, G, C)
     return acc.reshape(P, bsz, 3, 8).transpose(0, 1)
 
 
 def _horner_device_w(partials):
     """(B, NUM_WINDOWS, 3, 8) -> (B, 3, 8): acc = 256 * acc + partial[d],
-    top digit plane down, with the point kernels."""
-    bsz = partials.shape[0]
-    acc = identity_points((bsz,), partials.device)
-    for d in range(NUM_WINDOWS - 1, -1, -1):
-        acc = fold_dbl_any(acc, times=WINDOW_BITS)
-        acc = fold_add_any(acc, partials[:, d].contiguous())
-    return acc
+    top digit plane down, in one fold_horner launch."""
+    return fold_horner(partials, WINDOW_BITS)
 
 
 def _wpartials_to_affine(partials) -> list:
@@ -147,10 +133,7 @@ def _wpartials_to_affine(partials) -> list:
 def _bit_masks(scalar_rows):
     """(B, C, 8) plain scalar limbs -> (SCALAR_BITS * B * C,) uint8 lane
     masks: lane (bit * B + b) * C + c holds bit `bit` of scalar [b, c]."""
-    bit = torch.arange(SCALAR_BITS, device=scalar_rows.device)
-    words = u64(scalar_rows)[..., bit // 32]              # (B, C, 254)
-    bits = (words >> (bit % 32)) & 1
-    return bits.permute(2, 0, 1).reshape(-1).to(torch.uint8)
+    return bit_masks(scalar_rows, SCALAR_BITS)
 
 
 def _bit_partials(points, scalar_limbs, fold_width=None):
@@ -161,21 +144,15 @@ def _bit_partials(points, scalar_limbs, fold_width=None):
     C = min(n, fold_width or _FOLD_WIDTH)
     G = SCALAR_BITS * bsz
     acc = identity_points((G * C,), points.device)
-    for r in range(n // C):
-        acc = fold_mixed_tiled(acc, points[r * C:(r + 1) * C],
-                               _bit_masks(scalar_limbs[:, r * C:(r + 1) * C]))
-    acc = _tree_fold(acc, G, C)
+    acc = fold_mixed_tiled_rows(acc, points, scalar_limbs, C, 0, n // C)
+    acc = fold_add_tree(acc, G, C)
     return acc.reshape(SCALAR_BITS, bsz, 3, 8).transpose(0, 1)
 
 
 def _horner_device(partials):
     """(B, SCALAR_BITS, 3, 8) -> (B, 3, 8): acc = 2 * acc + partial[bit],
-    top bit down, with the point kernels."""
-    bsz = partials.shape[0]
-    acc = identity_points((bsz,), partials.device)
-    for b in range(SCALAR_BITS - 1, -1, -1):
-        acc = fold_add_any(fold_dbl_any(acc), partials[:, b].contiguous())
-    return acc
+    top bit down, in one fold_horner launch."""
+    return fold_horner(partials, 1)
 
 
 def _partials_to_affine(partials) -> list:

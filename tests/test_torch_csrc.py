@@ -3,8 +3,8 @@ chains of halo2tpu_torch/csrc/field.cuh, read from the file and run by a
 small interpreter of the instructions they use, give the Montgomery
 product, square, sum and difference of Python integers for Fr and Fq (edge
 operands included); _build.parse_ptxas reads ptxas's register and spill
-report.  The kernels themselves run in tests/test_torch_cuda.py on the
-card."""
+report and _build.parse_sass cuobjdump's instruction listing.  The
+kernels themselves run in tests/test_torch_cuda.py on the card."""
 import os
 import re
 
@@ -166,3 +166,46 @@ def test_parse_ptxas():
         == (128, 8, 16)
     assert res["mont_mul_kernel<true>"]["registers"] == 34
     assert len(fm["lines"]) == 4
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN43_GLOBAL__N__9ffe0043_10_ec_fold_cu_3dad9b9415fold_add_kernelEPKjS1_Pjx7Modulus
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+                                                                         /* 0x000fe20000000800 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R5, UR4, R2 ;       /* 0x0000000405027c25 */
+        /*0020*/              @!P0 IMAD.X R5, R6, R7, R8, P1 ;           /* 0x0000000706057224 */
+        /*0030*/                   CALL.REL.NOINC 0x80 ;                 /* 0x0000000400107944 */
+        /*0040*/                   CALL.REL.NOINC 0x80 ;                 /* 0x0000000400107944 */
+        /*0050*/               @P0 CALL.REL.NOINC 0x70 ;                 /* 0x0000000000047944 */
+        /*0060*/                   EXIT ;                                /* 0x000000000000794d */
+        /*0070*/                   RET.REL.NODEC R2 0x0 ;                /* 0xffffff8002007950 */
+        /*0080*/                   IMAD.MOV.U32 R2, RZ, RZ, R4 ;         /* 0x000000ffff027224 */
+        /*0090*/                   IMAD.HI.U32 R1, R2, R3, RZ ;          /* 0x0000000302017227 */
+        /*00a0*/                   RET.REL.NODEC R20 0x0 ;               /* 0xffffff5014007950 */
+        /*00b0*/                   BRA 0xb0;                             /* 0xfffffffc00fc7947 */
+        /*00c0*/                   NOP;                                  /* 0x0000000000007918 */
+\t\tFunction : _ZN46_GLOBAL__N__0a_mont_mul_cu_15mont_mul_kernelILb0EEEvPKjS2_Pjx7Modulus
+        /*0000*/                   EXIT ;                                /* 0x000000000000794d */
+\t\tFunction : _Z9somethingv
+        /*0000*/                   EXIT ;                                /* 0x000000000000794d */
+"""
+
+
+def test_parse_sass():
+    res = _build.parse_sass(SASS)
+    assert sorted(res) == ["fold_add_kernel", "mont_mul_kernel<false>"]
+    (add,) = res["fold_add_kernel"]
+    assert (add["instructions"], add["imad"], add["imad_wide"]) == (12, 4, 1)
+    assert add["parts"] == [
+        {"address": 0, "body_calls": 0, "instructions": 7, "imad": 2,
+         "imad_wide": 1},
+        {"address": 0x70, "body_calls": 1, "instructions": 1, "imad": 0,
+         "imad_wide": 0},
+        {"address": 0x80, "body_calls": 2, "instructions": 4, "imad": 2,
+         "imad_wide": 0}]
+    assert res["mont_mul_kernel<false>"] == [
+        {"instructions": 1, "imad": 0, "imad_wide": 0,
+         "parts": [{"address": 0, "body_calls": 0, "instructions": 1,
+                    "imad": 0, "imad_wide": 0}]}]

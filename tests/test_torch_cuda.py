@@ -178,6 +178,95 @@ def test_squaring_edge_operands(dev):
                            cuda_ec.fold_dbl_any_plain(pts, times))
 
 
+def _rand_points(m, seed, dev):
+    """m points of random canonical Fq coordinates (< 2^252): the point
+    formulas, and so the kernel against its plain version, do not need
+    points on the curve."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, (m, 3, 8),
+                                             dtype=np.uint32)
+    w[..., 7] &= 0x0FFFFFFF
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("G,width", [(2, 8), (3, 16), (5, 512), (1, 2048),
+                                     (520, 256)])
+def test_fold_add_tree_matches_plain(dev, G, width):
+    """Up to 256 lanes a tree launch (512 and 2048: two launches); 520 x 256
+    starts with one lanewise round of 66,560 adds.  Group 0 holds doubling,
+    inverse and identity lanes."""
+    acc = _rand_points(G * width, 20 + width, dev)
+    half = width // 2
+    acc[half] = acc[0]                                        # doubling
+    acc[1 + half] = acc[1]                                    # inverse
+    acc[1 + half, 1] = neg(FQ, acc[1, 1])
+    acc[2, 2] = 0                                             # p identity
+    acc[3 + half, 2] = 0                                      # q identity
+    before = (cuda_ec.fold_add_tree.launches, cuda_ec.fold_add.launches)
+    got = cuda_ec.fold_add_tree(acc, G, width)
+    assert torch.equal(got, cuda_ec.fold_add_tree_plain(acc, G, width))
+    lanewise = 1 if G * half >= cuda_ec.ADD_WAVE else 0
+    trees = 1 if width >> lanewise <= cuda_ec.TREE_LANES else 2
+    assert (cuda_ec.fold_add_tree.launches - before[0],
+            cuda_ec.fold_add.launches - before[1]) == (trees, lanewise)
+
+
+@pytest.mark.parametrize("times,planes", [(8, 32), (1, 254)])
+def test_fold_horner_matches_plain(dev, times, planes):
+    """B = 3: lane 0's partials all the identity, lane 1's top planes and
+    every fifth plane the identity."""
+    parts = _rand_points(3 * planes, 30 + times, dev).reshape(3, planes, 3, 8)
+    parts[0, :, 2] = 0
+    parts[1, -3:, 2] = 0
+    parts[1, ::5, 2] = 0
+    before = cuda_ec.fold_horner.launches
+    got = cuda_ec.fold_horner(parts, times)
+    assert cuda_ec.fold_horner.launches == before + 1
+    assert torch.equal(got, cuda_ec.fold_horner_plain(parts, times))
+
+
+@pytest.mark.parametrize("C,n,nbits,r0,r1", [(8, 64, 254, 0, 8),
+                                             (2, 128, 40, 3, 61)])
+def test_fold_mixed_tiled_rows_matches_plain(dev, C, n, nbits, r0, r1):
+    """Against the plain row loop and the chain of one-row fold_mixed_tiled
+    launches; bases 5 and n - 1 the identity; lanes whose acc equals,
+    negates or lacks the base of their first set row.  (2, 128): 58 rows,
+    two 32-row mask chunks and a bit of the second scalar word."""
+    B = 2
+    L = nbits * B * C
+    points = _rand_points(n, 40 + C, dev)
+    points[:, 2] = FQ.const("one_mont", dev)
+    points[5, 2] = points[n - 1, 2] = 0
+    rng = np.random.default_rng(41 + C)
+    scalars = torch.from_numpy(np.stack([ints_to_limbs(
+        [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)])
+        for _ in range(B)])).to(dev)
+    acc = _rand_points(L, 42 + C, dev)
+    lane = torch.arange(L, device=dev)
+    c = lane % C
+    bit, b = (lane // C) // B, (lane // C) % B
+    first = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    for r in range(r1 - 1, r0 - 1, -1):
+        w = scalars[b, r * C + c, bit // 32].to(torch.int64) & 0xFFFFFFFF
+        first = torch.where((w >> (bit % 32)) & 1 == 1, r, first)
+    sel = lane[first >= 0]
+    base = points[first[sel] * C + c[sel]]
+    acc[sel[0::7]] = base[0::7]                                # equal
+    acc[sel[1::7]] = base[1::7]                                # inverse
+    acc[sel[1::7], 1] = neg(FQ, base[1::7, 1])
+    acc[sel[2::7], 2] = 0                                      # identity
+    before = cuda_ec.fold_mixed_tiled_rows.launches
+    got = cuda_ec.fold_mixed_tiled_rows(acc, points, scalars, C, r0, r1)
+    assert cuda_ec.fold_mixed_tiled_rows.launches == before + 1
+    assert torch.equal(got, cuda_ec.fold_mixed_tiled_rows_plain(
+        acc, points, scalars, C, r0, r1))
+    chain = acc
+    for r in range(r0, r1):
+        chain = cuda_ec.fold_mixed_tiled(
+            chain, points[r * C:(r + 1) * C],
+            cuda_ec.bit_masks(scalars[:, r * C:(r + 1) * C], nbits))
+    assert torch.equal(got, chain)
+
+
 def test_kernels_reject_mixed_devices(dev):
     a = FR.encode([1, 2, 3], dev)
     with pytest.raises(ValueError):

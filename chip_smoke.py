@@ -10,7 +10,11 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              spill) and its SASS instruction counts (cuobjdump), from
              which fold_add's instruction bound is taken after phase 2.
   2. kernels each kernel against its plain torch version, bitwise, at the
-             main paths' shapes (fold_mixed at the three widths of a k=15
+             main paths' shapes (fe_pow at 1, 16 and 4,097 lanes with
+             exponents 0, 1, 2 and p - 2, Fr and Fq; field_prog on the
+             RSA-SHA256 part program at 2^15 rows, also against the per-op
+             route it replaces, at most 1/FIELD_PROG_OVER_CHAIN of its
+             time; fold_mixed at the three widths of a k=15
              commit, fold_dbl_any at 2^20 lanes once and 16 lanes 8
              times, fold_add at msm()'s and a warm proof's widths,
              fold_add_tree at the warm proof's four tail shapes and msm()'s,
@@ -18,9 +22,10 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              msm()'s full shape); kernel times as the median, min and max of
              3 rounds timed in turns, plain times, and the bound (the least
              time the card could take for the same work).  The tree and
-             Horner entries are also timed against the chains of launches
-             they replace, and must not be slower; msm()'s tail also in one
-             tree launch (the route ADD_WAVE is held against).
+             Horner entries and the one-lane fe_pow are also timed against
+             the chains of launches they replace, and must not be slower;
+             msm()'s tail also in one tree launch (the route ADD_WAVE is
+             held against).
   3. golden  Square k=4, Timestamp k=6 and RangeHarness k=7 (the port's
              own circuits) proven with TorchEngine(device="cuda"),
              byte-equal to tests/golden/torch_port_proofs.json (made by
@@ -30,8 +35,12 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              determinism, launches and kernel shapes per warm proof (no
              windowed fold_mixed launch under ops/msm.py's LANE_TARGET
              lanes unless it is one row; at most ADD_LAUNCHES_PER_PROOF
-             launches of the add kernel's entries and no fold_dbl_any),
-             peak memory.
+             launches of the add kernel's entries and no fold_dbl_any; one
+             field_prog launch a quotient part; at most
+             MONT_MUL_ONE_LANE_PER_PROOF one-lane mont_mul launches), peak
+             memory; one more warm proof under torch.profiler (every CUDA
+             kernel the card ran and the device busy share,
+             profile_proof.profile_run); the warm proof's sha256.
   5. msm     the bit-serial msm() over the 2^15 Lagrange bases of phase 4's
              SRS, 8 scalar vectors, equal to the windowed commits of the
              same vectors (phase 4's MSMContext) and, at n = 256, to the
@@ -87,6 +96,14 @@ MAX_REGISTERS = 128
 ADD_KERNEL = ("fold_add", "fold_add_any", "fold_add_tree", "fold_horner")
 ADD_LAUNCHES_PER_PROOF = 100
 ADD_LAUNCHES_PER_MSM = 4
+# field_prog at the RSA part takes at most this fraction of the per-op
+# route it replaces; a warm RSA k=15 proof launches it once a quotient part
+# and mont_mul at one lane at most MONT_MUL_ONE_LANE_PER_PROOF times
+FIELD_PROG_OVER_CHAIN = 20
+MONT_MUL_ONE_LANE_PER_PROOF = 500
+SOURCES = {"mont_mul": "halo2tpu_torch/csrc/mont_mul.cu",
+           "fe_pow": "halo2tpu_torch/csrc/mont_mul.cu",
+           "field_prog": "halo2tpu_torch/csrc/field_prog.cu"}
 
 
 def log(msg: str) -> None:
@@ -350,12 +367,172 @@ def _chain_case(cases: dict, name: str, fn, want, iters: int) -> None:
     cases[name] = (fn, iters)
 
 
+# -- the per-op route a quotient part took before field_prog ----------------
+# (the chain of launches that phase 2 holds the field_prog kernel against:
+# each gate poly, rule and compression one field op a launch, then the
+# engine's weighted y-reduction and the 1 / Z_H scale)
+
+def _op_l0_one_minus_z(jf, FR, l0, z):
+    return jf.mont_mul(FR, l0, jf.sub(FR, jf.one_like(FR, z), z))
+
+
+def _op_llast_zz(jf, FR, l_last, z):
+    return jf.mont_mul(FR, l_last, jf.sub(FR, jf.mont_mul(FR, z, z), z))
+
+
+def _op_perm_product(jf, FR, z, l_active, cvals, sigmas, bds, beta, gamma,
+                     wq):
+    import torch
+    lhs, rhs = torch.roll(z, -1, 0), z
+    for c, s, bd in zip(cvals, sigmas, bds):
+        t1 = jf.add(FR, c, jf.mont_mul(FR, s, beta))
+        lhs = jf.mont_mul(FR, lhs, jf.add(FR, t1, gamma))
+        t2 = jf.add(FR, c, jf.mont_mul(FR, wq, bd))
+        rhs = jf.mont_mul(FR, rhs, jf.add(FR, t2, gamma))
+    return jf.mont_mul(FR, jf.sub(FR, lhs, rhs), l_active)
+
+
+def _op_lookup_rules(jf, FR, zc, ac, sc, comp_in, comp_tb, l0, l_last,
+                     l_active, beta, gamma):
+    import torch
+    v1 = _op_l0_one_minus_z(jf, FR, l0, zc)
+    v2 = _op_llast_zz(jf, FR, l_last, zc)
+    z_next, a_prev = torch.roll(zc, -1, 0), torch.roll(ac, 1, 0)
+    lhs = jf.mont_mul(FR, z_next, jf.mont_mul(
+        FR, jf.add(FR, ac, beta), jf.add(FR, sc, gamma)))
+    rhs = jf.mont_mul(FR, zc, jf.mont_mul(
+        FR, jf.add(FR, comp_in, beta), jf.add(FR, comp_tb, gamma)))
+    v3 = jf.mont_mul(FR, jf.sub(FR, lhs, rhs), l_active)
+    a_minus_s = jf.sub(FR, ac, sc)
+    v4 = jf.mont_mul(FR, l0, a_minus_s)
+    v5 = jf.mont_mul(FR, jf.mont_mul(FR, a_minus_s, jf.sub(FR, ac, a_prev)),
+                     l_active)
+    return v1, v2, v3, v4, v5
+
+
+def _op_engine(device):
+    """The TorchEngine methods the per-op route calls, with no SRS."""
+    from halo2tpu_torch.plonk.engine import TorchEngine
+
+    class OpEngine:
+        _encode = TorchEngine._encode
+        _enc_scalar = TorchEngine._enc_scalar
+        _wsum = TorchEngine._wsum
+        weighted_sum = TorchEngine.weighted_sum
+        scale = TorchEngine.scale
+
+        def __init__(self):
+            self.device = device
+            self._scalar_cache = {}
+
+    return OpEngine()
+
+
+def per_op_part(eng, cs, n: int, leaf, ch: dict, zh_inv: int):
+    """A quotient part's hv / Z_H the way the prover computed it before
+    field_prog: leaf(key) gives the part's vectors under the part
+    program's leaf keys (plonk/quotient.py)."""
+    import torch
+    from halo2tpu_torch.fields import jfield as jf
+    from halo2tpu_torch.fields.bn254 import FR_DELTA, R
+    from halo2tpu_torch.fields.jfield import FR
+    from halo2tpu_torch.plonk.quotient import _perm_layout, _val_fn_for
+
+    def value(expr):
+        fn, leaves = _val_fn_for(expr)
+        return fn(*[eng._enc_scalar(v) if kind == "const" else leaf((kind, v))
+                    for kind, v in leaves])
+
+    def compress(exprs):
+        vals = [value(e) for e in exprs]
+        k = len(vals)
+        return vals[0] if k == 1 else eng.weighted_sum(
+            vals, [pow(ch["theta"], k - 1 - i, R) for i in range(k)])
+
+    l0, l_last, l_active = (leaf((k,)) for k in ("l0", "l_last", "l_active"))
+    beta_e, gamma_e = eng._enc_scalar(ch["beta"]), eng._enc_scalar(ch["gamma"])
+    values = [value(poly) for gate in cs.gates for poly in gate.polys]
+    chunks = _perm_layout(cs)
+    if chunks:
+        b = cs.blinding_factors()
+        perm_cols = cs.permutation_columns
+        zs = [leaf(("z", j)) for j in range(len(chunks))]
+        values.append(_op_l0_one_minus_z(jf, FR, l0, zs[0]))
+        values.append(_op_llast_zz(jf, FR, l_last, zs[-1]))
+        for j in range(1, len(chunks)):
+            prev = torch.roll(zs[j - 1], -((-(b + 1)) % n), 0)
+            values.append(jf.mont_mul(FR, l0, jf.sub(FR, zs[j], prev)))
+        gidx = 0
+        for j, chunk in enumerate(chunks):
+            bds = [eng._enc_scalar(ch["beta"] * pow(FR_DELTA, gidx + i, R) % R)
+                   for i in range(len(chunk))]
+            values.append(_op_perm_product(
+                jf, FR, zs[j], l_active, [leaf((c.kind, c.index))
+                                          for c in chunk],
+                [leaf(("sigma", perm_cols.index(c))) for c in chunk], bds,
+                beta_e, gamma_e, leaf(("wq",))))
+            gidx += len(chunk)
+    for li, lk in enumerate(cs.lookups):
+        values.extend(_op_lookup_rules(
+            jf, FR, *[leaf(("lookup", li, k)) for k in range(3)],
+            compress([p[0] for p in lk.pairs]),
+            compress([p[1] for p in lk.pairs]), l0, l_last, l_active, beta_e,
+            gamma_e))
+    N = len(values)
+    hv = eng.weighted_sum(values, [pow(ch["y"], N - 1 - i, R)
+                                   for i in range(N)])
+    return eng.scale(hv, zh_inv)
+
+
+def _field_prog_case(g, n: int, card: "Card", dev):
+    """The RSA-SHA256 part program at n rows on random leaves (strided
+    column views of one stack, as coeff_to_part_stack returns them) and
+    random challenges: (program, leaves by key, consts, ch, zh_inv, cs,
+    bound)."""
+    import torch
+    from halo2tpu_torch.fields.bn254 import R
+    from halo2tpu_torch.fields.jfield import FR
+    from halo2tpu_torch.plonk.circuit import ConstraintSystem
+    from halo2tpu_torch.plonk.quotient import const_value, part_program
+    cs = ConstraintSystem()
+    rsa_circuit().configure(cs)
+    prog = part_program(cs, n)
+    m = len(prog.leaf_keys)
+    stack = _rand_fe(g, n * m, dev).reshape(n, m, 8)
+    by_key = dict(zip(prog.leaf_keys, stack.unbind(1)))
+    vals = torch.randint(0, 2**62, (5, 4), generator=g, dtype=torch.int64)
+    ch_vals = [sum(int(w) << (62 * i) for i, w in enumerate(row)) % R
+               for row in vals.tolist()]
+    ch = dict(zip(("theta", "beta", "gamma", "y"), ch_vals))
+    zh_inv = ch_vals[4]
+    consts = FR.encode([const_value(k, ch, zh_inv) for k in prog.const_keys],
+                       dev)
+    ops = prog.op_counts()
+    products = ops["MUL"] + ops["HORNER"]
+    bound = card.bound((m + 1) * n * 32 + prog.code.nbytes
+                       + consts.numel() * 4,
+                       n * (products * MUL32_PER_MONT
+                            + ops["SQR"] * MUL32_PER_SQR))
+    return prog, by_key, consts, ch, zh_inv, cs, bound
+
+
+def _occupancy(registers: int, smem: int, threads: int) -> int:
+    """Blocks an SM can hold (H100: 65,536 registers allocated 256 a warp,
+    228 KB of shared memory with 1 KB reserved a block, 32 blocks, 2,048
+    threads)."""
+    warps = threads // 32
+    regs = -(-registers * 32 // 256) * 256 * warps
+    return min(65536 // regs, 233472 // (smem + 1024), 32, 2048 // threads)
+
+
 def phase_kernels(report: dict, card: Card) -> None:
     import torch
+    from halo2tpu_torch import _build
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.fields.bn254 import Q, R
     from halo2tpu_torch.curves.jpoint import identity_points
     from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops.field_prog import field_prog, field_prog_plain
     from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
 
     dev = torch.device("cuda")
@@ -421,6 +598,73 @@ def phase_kernels(report: dict, card: Card) -> None:
               lambda x=a, y=b: cuda_field.mont_mul_plain(jfield.FR, x, y),
               2000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
               lanes=lanes)
+
+    # fe_pow (cuda_field.mont_pow), Fr and Fq: exponents 0, 1, 2 and p - 2
+    # at 1, 16 and 4,097 lanes (the edge values 0, 1, p - 1 and R mod p
+    # first), bitwise against the plain version; timed at one lane with p -
+    # 2 (a proof's inversions) against the chain it replaces, one mont_mul
+    # launch a squaring or product
+    def chain_pow(spec, a, e):
+        result, base = spec.const("one_mont", dev).expand(a.shape), a
+        while e:
+            if e & 1:
+                result = cuda_field.mont_mul(spec, result, base)
+            e >>= 1
+            if e:
+                base = cuda_field.mont_mul(spec, base, base)
+        return result
+
+    for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
+        edge = torch.from_numpy(jfield.ints_to_limbs(
+            [0, 1, p - 1, (1 << 256) % p]).copy()).to(dev)
+        a = torch.cat([edge, _rand_fe(g, 4093, dev)])
+        for lanes in (1, 16, 4097):
+            for e in (0, 1, 2, p - 2):
+                err = _max_abs_err(cuda_field.mont_pow(spec, a[:lanes], e),
+                                   cuda_field.mont_pow_plain(spec, a[:lanes],
+                                                             e))
+                if err:
+                    raise AssertionError(f"fe_pow {fname} L{lanes} e={e}: "
+                                         f"kernel != plain ({err})")
+        e = p - 2
+        sq, mul = e.bit_length() - 1, bin(e).count("1")
+        x = _rand_fe(g, 1, dev)
+        name = f"fe_pow {fname} L1 p-2"
+        check("fe_pow", name, lambda s=spec, x=x, e=e:
+              cuda_field.mont_pow(s, x, e),
+              lambda s=spec, x=x, e=e: cuda_field.mont_pow_plain(s, x, e),
+              200, card.bound(64, sq * MUL32_PER_SQR + mul * MUL32_PER_MONT),
+              lanes=1, squarings=sq, products=mul, chain_launches=sq + mul,
+              chain_case=f"{name} chain")
+        _chain_case(cases, f"{name} chain",
+                    lambda s=spec, x=x, e=e: chain_pow(s, x, e),
+                    cuda_field.mont_pow(spec, x, e), 20)
+
+    # field_prog: the RSA-SHA256 part program at n = 2^15 rows (a k=15
+    # proof's part), bitwise against the plain interpreter and against the
+    # per-op route it replaces, timed against that route and its bound
+    n_q = 1 << 15
+    prog, by_key, consts, ch, zh_inv, cs, bound = _field_prog_case(
+        g, n_q, card, dev)
+    leaves = [by_key[k] for k in prog.leaf_keys]
+    op_eng = _op_engine(dev)
+    res = _build.resources.get("field_prog_kernel", {})
+    smem = prog.slots * 8 * 128 * 4
+    blocks = _occupancy(res.get("registers", 255), smem, 128)
+    ops = prog.op_counts()
+    check("field_prog", "field_prog rsa part",
+          lambda: field_prog(jfield.FR, prog, leaves, consts, n_q),
+          lambda: field_prog_plain(jfield.FR, prog, leaves, consts, n_q),
+          10, bound, plain_runs=1, rows=n_q,
+          instructions=int(prog.code.shape[0]), slots=prog.slots,
+          leaves=len(leaves), ops=ops, shared_bytes_per_block=smem,
+          blocks_per_sm=blocks, resident_blocks=min(
+              -(-n_q // 128), blocks * card.sms),
+          grid_blocks=-(-n_q // 128), chain_case="field_prog rsa part chain")
+    _chain_case(cases, "field_prog rsa part chain",
+                lambda: per_op_part(op_eng, cs, n_q, by_key.__getitem__, ch,
+                                    zh_inv),
+                field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -600,6 +844,8 @@ def phase_kernels(report: dict, card: Card) -> None:
         f"{len(cases)} cases, {ROUNDS} rounds in turns")
     times = _time_in_turns(cases)
     replaces = {"mont_mul": "halo2tpu/ops/pallas_field.py:347",
+                "fe_pow": "halo2tpu/fields/jfield.py:331",
+                "field_prog": "halo2tpu/plonk/quotient.py:258",
                 "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
                 "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
                 "fold_mixed_tiled_rows": "halo2tpu/ops/pallas_ec.py:291",
@@ -634,16 +880,25 @@ def phase_kernels(report: dict, card: Card) -> None:
                     f"{alt['ms']:.4f} ms ({alt['ms_min']:.4f}-"
                     f"{alt['ms_max']:.4f})")
         main = rows[0]                  # the main path's shape comes first
-        source = ("halo2tpu_torch/csrc/mont_mul.cu" if name == "mont_mul"
-                  else "halo2tpu_torch/csrc/ec_fold.cu")
         report[name] = {
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, "halo2tpu_torch/csrc/ec_fold.cu"),
             "replaces": replaces[name], "launches": 0,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "ms_min": main["ms_min"],
             "ms_max": main["ms_max"], "cases": rows}
+    fp = report["field_prog"]
+    if fp["ms"] * FIELD_PROG_OVER_CHAIN > fp["cases"][0]["chain_ms"]:
+        raise AssertionError(f"field_prog: {fp['ms']:.4f} ms, more than "
+                             f"1/{FIELD_PROG_OVER_CHAIN} of the per-op route "
+                             f"({fp['cases'][0]['chain_ms']:.4f} ms)")
+    log(f"kernel field_prog: {fp['cases'][0]['instructions']} instructions, "
+        f"{fp['cases'][0]['slots']} slots, {fp['cases'][0]['ops']}; "
+        f"{fp['cases'][0]['shared_bytes_per_block']} bytes of shared memory "
+        f"a block of 128, {fp['cases'][0]['blocks_per_sm']} blocks an SM fit, "
+        f"{fp['cases'][0]['grid_blocks']} blocks in the grid")
     del table
     torch.cuda.empty_cache()
 
@@ -652,7 +907,10 @@ def phase_kernels(report: dict, card: Card) -> None:
 
 def _wrappers() -> dict:
     from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops.field_prog import field_prog
     return {"mont_mul": cuda_field.mont_mul,
+            "fe_pow": cuda_field.mont_pow,
+            "field_prog": field_prog,
             "fold_mixed": cuda_ec.fold_mixed,
             "fold_mixed_tiled": cuda_ec.fold_mixed_tiled,
             "fold_mixed_tiled_rows": cuda_ec.fold_mixed_tiled_rows,
@@ -678,7 +936,9 @@ def _shapes() -> dict:
     return {name: w.shapes.copy() for name, w in _wrappers().items()}
 
 
-SHAPE_KEYS = {"mont_mul": "lanes", "fold_mixed": "lanes x C x rows",
+SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
+              "field_prog": "rows x instructions",
+              "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
               "fold_mixed_tiled_rows": "lanes x C x rows",
               "fold_add": "lanes", "fold_add_any": "lanes",
@@ -686,6 +946,8 @@ SHAPE_KEYS = {"mont_mul": "lanes", "fold_mixed": "lanes x C x rows",
               "fold_horner": "lanes x planes x times"}
 # the __global__ function (csrc/, _build.KERNELS) behind each wrapper
 KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
+             "fe_pow": "mont_pow_kernel",
+             "field_prog": "field_prog_kernel",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
              "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
@@ -835,6 +1097,13 @@ def phase_slice(report: dict, cache_dir: str):
     again = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
+    # one more warm proof under torch.profiler: every CUDA kernel the card
+    # ran (the port's and torch's own) and the device busy share
+    from profile_proof import profile_run
+    profiled, prof = profile_run(
+        lambda: create_proof(pk, srs, c, c.instances(), rng_seed=4,
+                             engine=eng), cache_dir)
+    sha = hashlib.sha256(proof).hexdigest()
     phases = {p: round(v, 3) for p, v in tr.phases.items()}
     log(f"slice: cold proof {cold:.2f} s, warm proof {warm:.2f} s")
     log(f"slice: warm phases {json.dumps(phases)}")
@@ -856,18 +1125,35 @@ def phase_slice(report: dict, cache_dir: str):
         raise AssertionError(f"slice: {adds} add-kernel and "
                              f"{per_warm['fold_dbl_any']} fold_dbl_any "
                              "launches in a warm proof")
+    parts = vk.domain.extended_n // vk.domain.n
+    one_lane = warm_shapes["mont_mul"][(1,)]
+    if (per_warm["field_prog"] != parts
+            or one_lane > MONT_MUL_ONE_LANE_PER_PROOF):
+        raise AssertionError(f"slice: {per_warm['field_prog']} field_prog "
+                             f"launches ({parts} parts), {one_lane} one-lane "
+                             "mont_mul launches in a warm proof")
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
     log(f"slice: launches over keygen + 3 proofs {json.dumps(launches)}")
-    log(f"slice: launches per warm proof {json.dumps(per_warm)}")
-    if again != proof:
+    log(f"slice: launches per warm proof {json.dumps(per_warm)}; mont_mul "
+        f"at one lane {one_lane}, at 32,768 lanes "
+        f"{warm_shapes['mont_mul'][(32768,)]}; fe_pow (one an inversion) "
+        f"{per_warm['fe_pow']}")
+    log(f"slice: profiled warm proof {json.dumps(prof)}")
+    log(f"slice: warm proof sha256 {sha}")
+    if again != proof or profiled != proof:
         raise AssertionError("slice: same seed gave different proof bytes")
     if not verify_proof(vk, srs, c.instances(), proof):
         raise AssertionError("slice: warm proof does not verify")
     if not verify_proof(vk, srs, c.instances(), cold_proof):
         raise AssertionError("slice: cold proof does not verify")
     _record_path(report, "rsa_k15_keygen_and_3_proofs", launches,
-                 ("mont_mul", "fold_mixed", "fold_add", "fold_add_any",
-                  "fold_add_tree", "fold_horner", "fold_dbl_any"))
+                 ("mont_mul", "fe_pow", "field_prog", "fold_mixed",
+                  "fold_add", "fold_add_any", "fold_add_tree", "fold_horner",
+                  "fold_dbl_any"))
+    report["field_prog"].update(warm_proof_s=warm,
+                                quotient_s=tr.phases["quotient"],
+                                profiled_warm_proof=prof,
+                                proof_sha256=sha)
     for name, n in per_warm.items():
         report[name]["launches_per_warm_proof"] = n
         if name in warm_shapes:

@@ -6,10 +6,11 @@ canonical in [0, p) and in Montgomery form with R = 2^256 — the same bytes
 as halo2tpu's (..., 16) 16-bit limbs, so raw Montgomery arrays convert
 without arithmetic (halo2tpu_torch/convert.py).
 
-mont_mul launches the CUDA kernel (ops/cuda_field.py) for CUDA tensors and
-runs its plain torch version for CPU tensors.  add/sub/neg and the scans
-are plain torch on either device.  CPU torch has no uint32 add, shift or
-compare, so limbs are widened to int64 inside every function.
+mont_mul and mont_pow launch the CUDA kernels (ops/cuda_field.py) for CUDA
+tensors and run their plain torch versions for CPU tensors.  add/sub/neg
+and the scans are plain torch on either device.  CPU torch has no uint32
+add, shift or compare, so limbs are widened to int64 inside every
+function.
 """
 from __future__ import annotations
 
@@ -234,16 +235,9 @@ def one_like(spec: FieldSpec, a):
 
 
 def mont_pow(spec: FieldSpec, a, e: int):
-    """a^e for a python-int exponent (square-and-multiply)."""
-    result = one_like(spec, a)
-    base = a
-    while e:
-        if e & 1:
-            result = mont_mul(spec, result, base)
-        e >>= 1
-        if e:
-            base = mont_mul(spec, base, base)
-    return result
+    """a^e for a python-int exponent (square-and-multiply; one kernel
+    launch on CUDA)."""
+    return cuda_field.mont_pow(spec, a, e)
 
 
 def inv(spec: FieldSpec, a):
@@ -251,15 +245,20 @@ def inv(spec: FieldSpec, a):
     return mont_pow(spec, a, spec.p - 2)
 
 
-def _prefix_sum_mod(spec: FieldSpec, a):
-    """Inclusive prefix sum mod p along axis 0 (Hillis-Steele rounds)."""
+def _scan_rounds(a, op):
+    """Inclusive scan of op along axis 0 in Hillis-Steele rounds: log2(n)
+    launches, each over every row that has a partner."""
     n = a.shape[0]
-    x = a
-    shift = 1
+    x, shift = a, 1
     while shift < n:
-        x = torch.cat([x[:shift], add(spec, x[shift:], x[:n - shift])])
+        x = torch.cat([x[:shift], op(x[shift:], x[:n - shift])])
         shift *= 2
     return x
+
+
+def _prefix_sum_mod(spec: FieldSpec, a):
+    """Inclusive prefix sum mod p along axis 0."""
+    return _scan_rounds(a, lambda x, y: add(spec, x, y))
 
 
 def suffix_sum_mod(spec: FieldSpec, a):
@@ -274,14 +273,12 @@ def _prefix_prod(spec: FieldSpec, a):
     """Inclusive prefix product along axis 0, blocked: a sequential scan
     inside blocks of 16 rows (16 batched multiplies over n/16 rows each),
     the same scan recursively over the block totals, then one multiply by
-    each block's exclusive prefix — about 2n products in all."""
+    each block's exclusive prefix — about 2n products in all.  At most 16
+    rows take Hillis-Steele rounds (4 launches, none of one row)."""
     n = a.shape[0]
     b = _SCAN_BLOCK
     if n <= b:
-        rows = [a[0]]
-        for i in range(1, n):
-            rows.append(mont_mul(spec, rows[-1], a[i]))
-        return torch.stack(rows)
+        return _scan_rounds(a, lambda x, y: mont_mul(spec, x, y))
     nb = -(-n // b)
     pad = one_like(spec, a[:1]).expand((nb * b - n,) + a.shape[1:])
     x = torch.cat([a, pad]).reshape((nb, b) + a.shape[1:])

@@ -1,16 +1,20 @@
-"""Montgomery multiply: the CUDA kernel (csrc/mont_mul.cu) and its plain
-torch version.  Counterpart of halo2tpu/ops/pallas_field.py.
+"""Montgomery multiply and power: the CUDA kernels (csrc/mont_mul.cu) and
+their plain torch versions.  Counterparts of halo2tpu/ops/pallas_field.py
+and of halo2tpu/fields/jfield.py::mont_pow.
 
-`mont_mul` launches the kernel for CUDA tensors and takes the plain version
-only for CPU tensors.  The plain version works on any device (chip_smoke.py
-compares the two on the card).  Beside its count of launches, `mont_mul`
-keeps `shapes`, a histogram of the lane counts it launched: (lanes,).
+`mont_mul` and `mont_pow` launch their kernels for CUDA tensors and take
+the plain versions only for CPU tensors.  The plain versions work on any
+device (chip_smoke.py compares them with the kernels on the card).  Beside
+its count of launches, each wrapper keeps `shapes`, a histogram of the lane
+counts it launched: (lanes,).
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
 from __future__ import annotations
 
 from collections import Counter
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -129,3 +133,48 @@ def mont_mul(spec, a, b):
 
 mont_mul.launches = 0
 mont_mul.shapes = Counter()
+
+
+def mont_pow_plain(spec, a, e: int):
+    """a^e lanewise for a python-int exponent: square-and-multiply from the
+    lowest bit, one mont_mul_plain a product or squaring."""
+    result = spec.const("one_mont", a.device).expand(a.shape)
+    base = a
+    while e:
+        if e & 1:
+            result = mont_mul_plain(spec, result, base)
+        e >>= 1
+        if e:
+            base = mont_mul_plain(spec, base, base)
+    return result
+
+
+def mont_pow(spec, a, e: int):
+    """a^e lanewise, (..., 8) int32 limbs, 0 <= e < 2^256.  A CUDA tensor
+    takes one launch of the kernel (the whole square-and-multiply chain);
+    a CPU tensor takes mont_pow_plain."""
+    if not 0 <= e < 1 << 256:
+        raise ValueError("mont_pow: exponent out of [0, 2^256)")
+    if a.device.type == "cpu":
+        return mont_pow_plain(spec, a, e)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_pow: operand on {a.device}")
+    if a.dtype != torch.int32 or a.shape[-1] != NLIMB:
+        raise TypeError("mont_pow: operand must be an int32 limb tensor")
+    from .._build import check, lib
+    a = a.contiguous()
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    n = a.numel() // NLIMB
+    words = (ctypes.c_uint32 * NLIMB)(*[(e >> (32 * i)) & 0xFFFFFFFF
+                                         for i in range(NLIMB)])
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    check(lib().h2_mont_pow(a.data_ptr(), out.data_ptr(), n,
+                            ctypes.addressof(words), e.bit_length(),
+                            spec.mod_words_ptr, stream), "mont_pow")
+    mont_pow.launches += 1
+    mont_pow.shapes[(n,)] += 1
+    return out
+
+
+mont_pow.launches = 0
+mont_pow.shapes = Counter()

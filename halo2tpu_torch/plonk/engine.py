@@ -36,12 +36,14 @@ def _tree_sum(arr, dim: int = 0):
 
 
 def _powers(a_enc, n: int):
-    """On-device [a^0 .. a^(n-1)] by doubling: a_enc (8,) Montgomery."""
+    """On-device [a^0 .. a^(n-1)] by doubling: a_enc (8,) Montgomery.  Each
+    round multiplies the powers so far and the step a^(2^k) by the step in
+    one launch: the next block of powers and the next step."""
     out = jfield.one_like(FR, a_enc)[None]
     step = a_enc[None]
     while out.shape[0] < n:
-        out = torch.cat([out, jfield.mont_mul(FR, out, step)])
-        step = jfield.mont_mul(FR, step, step)
+        prod = jfield.mont_mul(FR, torch.cat([out, step]), step)
+        out, step = torch.cat([out, prod[:-1]]), prod[-1:]
     return out[:n]
 
 
@@ -390,20 +392,20 @@ class TorchEngine:
         n = chunk_cols[0][0].shape[0]
         m = max(len(c) for c in chunk_cols)
         zero = torch.zeros((n, NLIMB), dtype=torch.int32, device=self.device)
-        zero_s = torch.zeros(NLIMB, dtype=torch.int32, device=self.device)
         be, ge = self._enc_scalar(beta), self._enc_scalar(gamma)
+        # every chunk's beta * delta_j, zero-padded to m, in one encode
+        bds_all = self._encode([beta * d[j] % R if j < len(d) else 0
+                                for d in chunk_deltas for j in range(m)]
+                               ).reshape(len(chunk_deltas), m, NLIMB)
         nums, dens = [], []
         for i in range(0, len(chunk_cols), self.numden_chunk):
             cc = chunk_cols[i:i + self.numden_chunk]
             cs = chunk_sigmas[i:i + self.numden_chunk]
-            cd = chunk_deltas[i:i + self.numden_chunk]
             cols = torch.stack([torch.stack(list(c) + [zero] * (m - len(c)))
                                 for c in cc])               # (K, m, n, 8)
             sigs = torch.stack([torch.stack(list(s) + [zero] * (m - len(s)))
                                 for s in cs])
-            bds = torch.stack([torch.stack(
-                [self._enc_scalar(beta * dl % R) for dl in d]
-                + [zero_s] * (m - len(d))) for d in cd])    # (K, m, 8)
+            bds = bds_all[i:i + self.numden_chunk]          # (K, m, 8)
             num = den = jfield.one_like(FR, cols[:, 0])
             for j in range(m):
                 idp = jfield.mont_mul(FR, omega_pows, bds[:, j, None])

@@ -41,7 +41,8 @@ def _rng_field(rng: np.random.Generator) -> int:
 class _PkState:
     """Engine-resident proving-key state, cached per (pk, engine device):
     n-domain Lagrange columns, coefficient polys, per-part Lagrange-selector
-    vectors, Z_H constants and (within a byte budget) the witness-
+    and c_q omega^i vectors, Z_H constants, the quotient's part program
+    (compiled at the first proof) and (within a byte budget) the witness-
     independent fixed/sigma part values."""
 
     parts_cache_bytes = 4600 << 20
@@ -73,10 +74,14 @@ class _PkState:
         # part_l[q] = (l0, l_last, l_active) values on extended-coset part q
         self.part_l = [tuple(eng.coeff_to_part_stack(l_coeffs, q))
                        for q in range(step)]
+        # wq on part q: c_q * omega^i
+        self.part_wq = [eng.scale(self.omega_pows, polyops.part_shift(d, q))
+                        for q in range(step)]
         # Z_H is constant per part: (c_q^n - 1)^-1
         self.zh_inv = [
             inv_mod((pow(polyops.part_shift(d, q), n, R) - 1) % R, R)
             for q in range(step)]
+        self.quotient_program = None
         self._fixed_parts = [None] * step
         self._sigma_parts = [None] * step
         self._parts_budget = self.parts_cache_bytes

@@ -4,23 +4,33 @@ path of halo2tpu/plonk/quotient.py.
 The extended coset splits into step = extended_n / n interleaved cosets
 ("parts") of the order-n subgroup; rotations never cross parts and Z_H is
 constant on each, so the quotient is evaluated part by part with an n-sized
-working set.  Gate expressions are compiled into torch callables, cached by
-structure (leaf kinds, rotations and op tree), so structurally identical
-gates share one callable; constants enter as (8,) scalar tensors.
+working set.
+
+Everything a part computes (every gate poly, the permutation and lookup
+rules, the lookups' theta-compressions, the y-fold and the 1 / Z_H scale) is
+compiled once per proving key into one field program (`part_program`,
+cached on the prover's _PkState) and runs as one field_prog launch a part
+(ops/field_prog.py).  A proof re-encodes only the program's constants.
+Field ops on canonical values are exact, so the Horner y-fold gives the
+bits of halo2tpu's weighted reduction.  The prover's n-domain lookup
+compression (`compress_exprs`) still evaluates expressions one field op a
+launch, through torch callables cached by structure.
 
 Fold order (gates, then permutation rules, then per-lookup rules) is pinned
 by the verifier's y-Horner and must match halo2tpu/plonk/verifier.py.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fields.bn254 import R, FR_DELTA
-from . import polyops
 from .expression import (AdviceQuery, Constant, FixedQuery, InstanceQuery,
                          Neg, Product, Sum)
 from ..fields import jfield
 from ..fields.jfield import FR
+from ..ops.field_prog import (ADD, CONST, HORNER, LOAD, MUL, NEG, OUT, S_MAX,
+                              SQR, SUB, Program, field_prog)
 
 
 # ---------------------------------------------------------------------------
@@ -101,65 +111,14 @@ def _val_fn_for(expr):
     return fn, leaves
 
 
-# rule values (each returns its expression VALUE; the y-fold happens
-# afterwards as one weighted reduction) -------------------------------------
-
-def _val_l0_one_minus_z(l0, z):
-    return jfield.mont_mul(FR, l0, jfield.sub(FR, jfield.one_like(FR, z), z))
-
-
-def _val_llast_zz(l_last, z):
-    return jfield.mont_mul(FR, l_last,
-                           jfield.sub(FR, jfield.mont_mul(FR, z, z), z))
-
-
-def _val_l0_z_minus_prev(l0, z, z_prev, rot):
-    prev = torch.roll(z_prev, -(rot % z_prev.shape[0]), 0)
-    return jfield.mont_mul(FR, l0, jfield.sub(FR, z, prev))
-
-
-def _val_perm_product(z, l_active, cvals, sigmas, bds, beta, gamma, wq):
-    """Permutation chunk product rule value:
-      (z(wX) prod(c + beta*sigma + gamma) - z(X) prod(c + beta*delta_j*wq
-       + gamma)) * l_active.  cvals/sigmas: (m, n, 8); bds: (m, 8)."""
-    lhs, rhs = torch.roll(z, -1, 0), z
-    for j in range(cvals.shape[0]):
-        c = cvals[j]
-        t1 = jfield.add(FR, c, jfield.mont_mul(FR, sigmas[j], beta))
-        lhs = jfield.mont_mul(FR, lhs, jfield.add(FR, t1, gamma))
-        t2 = jfield.add(FR, c, jfield.mont_mul(FR, wq, bds[j]))
-        rhs = jfield.mont_mul(FR, rhs, jfield.add(FR, t2, gamma))
-    return jfield.mont_mul(FR, jfield.sub(FR, lhs, rhs), l_active)
-
-
-def _val_lookup_rules(zc, ac, sc, comp_in, comp_tb, l0, l_last, l_active,
-                      beta, gamma):
-    """The five halo2 lookup-argument expression values, protocol order:
-      l0(1-z); l_last(z^2-z);
-      (z(wX)(a'+beta)(s'+gamma) - z(X)(A+beta)(S+gamma)) l_active;
-      l0(a'-s'); (a'-s')(a'-a'(w^-1 X)) l_active."""
-    v1 = _val_l0_one_minus_z(l0, zc)
-    v2 = _val_llast_zz(l_last, zc)
-    z_next = torch.roll(zc, -1, 0)
-    a_prev = torch.roll(ac, 1, 0)
-    lhs = jfield.mont_mul(FR, z_next, jfield.mont_mul(
-        FR, jfield.add(FR, ac, beta), jfield.add(FR, sc, gamma)))
-    rhs = jfield.mont_mul(FR, zc, jfield.mont_mul(
-        FR, jfield.add(FR, comp_in, beta), jfield.add(FR, comp_tb, gamma)))
-    v3 = jfield.mont_mul(FR, jfield.sub(FR, lhs, rhs), l_active)
-    a_minus_s = jfield.sub(FR, ac, sc)
-    v4 = jfield.mont_mul(FR, l0, a_minus_s)
-    v5 = jfield.mont_mul(FR, jfield.mont_mul(
-        FR, a_minus_s, jfield.sub(FR, ac, a_prev)), l_active)
-    return v1, v2, v3, v4, v5
-
-
-def _compress(eng, exprs, leaf_value, theta):
-    """theta-compression sum_i theta^(k-1-i) e_i."""
+def compress_exprs(eng, exprs, col_vals, theta):
+    """theta-compression sum_i theta^(k-1-i) e_i over any column family,
+    one field op a launch (the prover's n-domain lookup compression)."""
     vals = []
     for e in exprs:
         fn, leaves = _val_fn_for(e)
-        vals.append(fn(*[leaf_value(kind, v) for kind, v in leaves]))
+        vals.append(fn(*[eng._enc_scalar(v) if kind == "const"
+                         else col_vals[kind][v] for kind, v in leaves]))
     if len(vals) == 1:
         return vals[0]
     k = len(vals)
@@ -167,12 +126,243 @@ def _compress(eng, exprs, leaf_value, theta):
                                    for i in range(k)])
 
 
-def compress_exprs(eng, exprs, col_vals, theta):
-    """theta-compression over any column family (the prover's n-domain
-    lookup compression)."""
-    return _compress(
-        eng, exprs, lambda kind, v: eng._enc_scalar(v) if kind == "const"
-        else col_vals[kind][v], theta)
+# ---------------------------------------------------------------------------
+# the part program compiler
+#
+# A part's values are trees of tuples: ("load", leaf_key, rot),
+# ("const", const_key), ("neg", x), ("add" | "sub" | "mul", x, y) and
+# ("horner", x, y, const_key) = x * c + y.  Leaf keys name the part's
+# vectors: ("advice" | "fixed" | "instance" | "sigma" | "z", index),
+# ("lookup", i, 0 | 1 | 2) for lookup i's z, A' and S', ("l0",),
+# ("l_last",), ("l_active",) and ("wq",) (c_q * omega^i).  Constant keys:
+# ("value", v), the challenges ("beta",), ("gamma",), ("theta",), ("y",),
+# ("bd", j) = beta * delta^j, and ("zh_inv",), the part's 1 / Z_H.
+
+def _ld(*key, rot: int = 0):
+    return ("load", key, rot)
+
+
+def _cst(*key):
+    return ("const", key)
+
+
+def _add(x, y):
+    return ("add", x, y)
+
+
+def _sub(x, y):
+    return ("sub", x, y)
+
+
+def _mul(x, y):
+    return ("mul", x, y)
+
+
+def expr_ir(e):
+    """A gate expression (plonk/expression.py) as a value tree."""
+    if isinstance(e, Constant):
+        return _cst("value", e.value % R)
+    if isinstance(e, AdviceQuery):
+        return _ld("advice", e.column_index, rot=e.rotation)
+    if isinstance(e, FixedQuery):
+        return _ld("fixed", e.column_index, rot=e.rotation)
+    if isinstance(e, InstanceQuery):
+        return _ld("instance", e.column_index, rot=e.rotation)
+    if isinstance(e, Neg):
+        return ("neg", expr_ir(e.expr))
+    if isinstance(e, Sum):
+        return _add(expr_ir(e.lhs), expr_ir(e.rhs))
+    if isinstance(e, Product):
+        return _mul(expr_ir(e.lhs), expr_ir(e.rhs))
+    raise TypeError(f"unknown expr node {type(e)}")
+
+
+def _horner(values, key):
+    """sum_i c^(k-1-i) v_i as a left-deep Horner tree."""
+    acc = values[0]
+    for v in values[1:]:
+        acc = ("horner", acc, v, key)
+    return acc
+
+
+class _Emitter:
+    """Sethi-Ullman code generation: each binary node evaluates its deeper
+    operand first, so a tree of label l (a leaf 1; a node the larger of
+    its operands' labels, or one more when they are equal) takes l slots."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.code: list = []
+        self.leaves: dict = {}
+        self.consts: dict = {}
+        self.free: list = []
+        self.slots = 0
+        self._labels: dict = {}
+
+    def leaf(self, key) -> int:
+        return self.leaves.setdefault(key, len(self.leaves))
+
+    def const(self, key) -> int:
+        return self.consts.setdefault(key, len(self.consts))
+
+    def alloc(self) -> int:
+        if self.free:
+            s = min(self.free)
+            self.free.remove(s)
+            return s
+        if self.slots == S_MAX:
+            raise ValueError(f"field program needs more than {S_MAX} slots")
+        self.slots += 1
+        return self.slots - 1
+
+    def label(self, node) -> int:
+        got = self._labels.get(id(node))
+        if got is None:
+            kind = node[0]
+            if kind in ("load", "const"):
+                got = 1
+            elif kind == "neg":
+                got = self.label(node[1])
+            else:
+                a, b = self.label(node[1]), self.label(node[2])
+                got = a + 1 if a == b else max(a, b)
+            self._labels[id(node)] = got
+        return got
+
+    def emit(self, node) -> int:
+        """Code for node into a fresh slot; returns the slot."""
+        kind = node[0]
+        if kind == "load":
+            s = self.alloc()
+            self.code.append((LOAD, s, self.leaf(node[1]), node[2] % self.n))
+            return s
+        if kind == "const":
+            s = self.alloc()
+            self.code.append((CONST, s, self.const(node[1]), 0))
+            return s
+        if kind == "neg":
+            s = self.emit(node[1])
+            self.code.append((NEG, s, s, 0))
+            return s
+        x, y = node[1], node[2]
+        if kind == "mul" and x == y:
+            s = self.emit(x)
+            self.code.append((SQR, s, s, 0))
+            return s
+        if self.label(y) > self.label(x):
+            sy = self.emit(y)
+            sx = self.emit(x)
+        else:
+            sx = self.emit(x)
+            sy = self.emit(y)
+        if kind == "horner":
+            self.code.append((HORNER, sx, sy, self.const(node[3])))
+        else:
+            op = {"add": ADD, "sub": SUB, "mul": MUL}[kind]
+            self.code.append((op, sx, sx, sy))
+        self.free.append(sy)
+        return sx
+
+
+def compile_program(values, n: int, fold=None, scale=None) -> Program:
+    """One program over n rows: the value of one tree or, with `fold` (a
+    constant key c), sum_i c^(N-1-i) v_i folded by Horner as the values
+    are computed (an accumulator slot and one more for each value), then
+    times the constant `scale` if given.  Raises ValueError past S_MAX
+    slots."""
+    if fold is None and len(values) != 1:
+        raise ValueError("several values need a fold constant")
+    em = _Emitter(n)
+    acc = em.emit(values[0] if values else _cst("value", 0))
+    for v in values[1:]:
+        s = em.emit(v)
+        em.code.append((HORNER, acc, s, em.const(fold)))
+        em.free.append(s)
+    if scale is not None:
+        s = em.emit(("const", scale))
+        em.code.append((MUL, acc, acc, s))
+        em.free.append(s)
+    em.code.append((OUT, 0, acc, 0))
+    return Program(np.asarray(em.code, dtype=np.int32).reshape(-1, 4),
+                   em.slots, list(em.leaves), list(em.consts))
+
+
+def _perm_layout(cs):
+    chunk_len = cs.permutation_chunk_len()
+    cols = cs.permutation_columns
+    return [cols[i:i + chunk_len] for i in range(0, len(cols), chunk_len)]
+
+
+def part_values(cs, n: int) -> list:
+    """Every value a quotient part folds, as trees, in the protocol fold
+    order the verifier's y-Horner pins (halo2tpu/plonk/verifier.py): each
+    gate poly; the permutation rules l0 (1 - z_0), l_last (z_last^2 -
+    z_last), each chunk link l0 (z_j - z_{j-1}(omega^-(b+1) X)) and each
+    chunk's (z(omega X) prod(c + beta sigma + gamma) - z(X) prod(c +
+    beta delta^g c_q omega^i + gamma)) l_active; then each lookup's five
+    rules over its theta-compressed input and table."""
+    values = [expr_ir(poly) for gate in cs.gates for poly in gate.polys]
+    l0, l_last, l_active = _ld("l0"), _ld("l_last"), _ld("l_active")
+    one = _cst("value", 1)
+    beta, gamma = _cst("beta"), _cst("gamma")
+    chunks = _perm_layout(cs)
+    if chunks:
+        b = cs.blinding_factors()
+        perm_cols = cs.permutation_columns
+        last = len(chunks) - 1
+        values.append(_mul(l0, _sub(one, _ld("z", 0))))
+        values.append(_mul(l_last, _sub(_mul(_ld("z", last), _ld("z", last)),
+                                        _ld("z", last))))
+        for j in range(1, len(chunks)):
+            values.append(_mul(l0, _sub(_ld("z", j),
+                                        _ld("z", j - 1, rot=-(b + 1)))))
+        gidx = 0
+        for j, chunk in enumerate(chunks):
+            lhs, rhs = _ld("z", j, rot=1), _ld("z", j)
+            for i, c in enumerate(chunk):
+                col = _ld(c.kind, c.index)
+                sigma = _ld("sigma", perm_cols.index(c))
+                lhs = _mul(lhs, _add(_add(col, _mul(sigma, beta)), gamma))
+                idp = _mul(_ld("wq"), _cst("bd", gidx + i))
+                rhs = _mul(rhs, _add(_add(col, idp), gamma))
+            values.append(_mul(_sub(lhs, rhs), l_active))
+            gidx += len(chunk)
+    for li, lk in enumerate(cs.lookups):
+        comp_in = _horner([expr_ir(p[0]) for p in lk.pairs], ("theta",))
+        comp_tb = _horner([expr_ir(p[1]) for p in lk.pairs], ("theta",))
+        z, a, s = (_ld("lookup", li, k) for k in range(3))
+        lhs = _mul(_ld("lookup", li, 0, rot=1), _mul(_add(a, beta),
+                                                     _add(s, gamma)))
+        rhs = _mul(z, _mul(_add(comp_in, beta), _add(comp_tb, gamma)))
+        a_minus_s = _sub(a, s)
+        values.extend([
+            _mul(l0, _sub(one, z)),
+            _mul(l_last, _sub(_mul(z, z), z)),
+            _mul(_sub(lhs, rhs), l_active),
+            _mul(l0, a_minus_s),
+            _mul(_mul(a_minus_s, _sub(a, _ld("lookup", li, 1, rot=-1))),
+                 l_active)])
+    return values
+
+
+def part_program(cs, n: int) -> Program:
+    """A quotient part as one program: hv / Z_H, with hv = sum_i y^(N-1-i)
+    v_i over part_values (equal to the verifier's Horner y-fold)."""
+    return compile_program(part_values(cs, n), n, fold=("y",),
+                           scale=("zh_inv",))
+
+
+def const_value(key, ch: dict, zh_inv: int) -> int:
+    """The value of a program constant for challenges ch and a part's
+    1 / Z_H."""
+    kind = key[0]
+    if kind == "value":
+        return key[1]
+    if kind == "bd":
+        return ch["beta"] * pow(FR_DELTA, key[1], R) % R
+    if kind == "zh_inv":
+        return zh_inv
+    return ch[kind]
 
 
 # ---------------------------------------------------------------------------
@@ -182,84 +372,43 @@ def fold_quotient(eng, cs, d, st, srcs, ch):
     """Evaluate the folded quotient numerator part by part and return the
     h coefficient chunks.
 
-    st:   prover._PkState (part l0/l_last/l_active, zh_inv, omega_pows,
-          fixed/sigma coefficient polys)
+    st:   prover._PkState (part l0/l_last/l_active and wq, zh_inv,
+          fixed/sigma coefficient polys, the cached part program)
     srcs: dict with advice_polys, instance_polys, z_polys,
           lookup_polys = [(z, a, s)] per lookup
     ch:   dict with theta, beta, gamma, y (python ints)
     """
+    if st.quotient_program is None:
+        st.quotient_program = part_program(cs, d.n)
     step = d.extended_n // d.n
-    parts = []
-    for q in range(step):
-        hv = _fold_part(eng, cs, d, st, srcs, ch, q)
-        parts.append(eng.scale(hv, st.zh_inv[q]))
+    parts = [_fold_part(eng, st, srcs, ch, q, st.quotient_program)
+             for q in range(step)]
     return eng.parts_to_h_chunks(parts, d.quotient_poly_degree)
 
 
-def _perm_layout(cs):
-    chunk_len = cs.permutation_chunk_len()
-    cols = cs.permutation_columns
-    return [cols[i:i + chunk_len] for i in range(0, len(cols), chunk_len)]
+def _fold_part(eng, st, srcs, ch, q, prog):
+    """Part q's hv / Z_H: the part's vectors (NTTs), then one field_prog
+    launch.  A proof only re-encodes the constants (one _encode call)."""
+    tables = {
+        "advice": eng.coeff_to_part_stack(srcs["advice_polys"], q),
+        "fixed": st.fixed_parts(eng, q),
+        "sigma": st.sigma_parts(eng, q),
+        "instance": eng.coeff_to_part_stack(srcs["instance_polys"], q),
+        "z": eng.coeff_to_part_stack(srcs["z_polys"], q),
+        "lookup": [eng.coeff_to_part_stack(list(polys), q)
+                   for polys in srcs["lookup_polys"]],
+    }
+    named = dict(zip(("l0", "l_last", "l_active"), st.part_l[q]),
+                 wq=st.part_wq[q])
+
+    def leaf(key):
+        if key[0] == "lookup":
+            return tables["lookup"][key[1]][key[2]]
+        return tables[key[0]][key[1]] if len(key) > 1 else named[key[0]]
+
+    consts = eng._encode([const_value(k, ch, st.zh_inv[q])
+                          for k in prog.const_keys])
+    return field_prog(FR, prog, [leaf(k) for k in prog.leaf_keys], consts,
+                      eng.d.n)
 
 
-def _fold_part(eng, cs, d, st, srcs, ch, q):
-    """Every contribution's value on part q, then hv = sum_i y^(N-1-i) v_i
-    as chunked weighted reductions (the verifier's Horner y-fold)."""
-    n = d.n
-    b = cs.blinding_factors()
-    adv = eng.coeff_to_part_stack(srcs["advice_polys"], q)
-    fix = st.fixed_parts(eng, q)     # witness-independent: cached on state
-    sig = st.sigma_parts(eng, q)
-    inst = eng.coeff_to_part_stack(srcs["instance_polys"], q)
-    zs = eng.coeff_to_part_stack(srcs["z_polys"], q)
-    lk_parts = [tuple(eng.coeff_to_part_stack(list(polys), q))
-                for polys in srcs["lookup_polys"]]
-    l0, l_last, l_active = st.part_l[q]
-    wq = eng.scale(st.omega_pows, polyops.part_shift(d, q))
-
-    col_vals = {"advice": adv, "fixed": fix, "instance": inst}
-    theta = ch["theta"]
-    beta_e = eng._enc_scalar(ch["beta"])
-    gamma_e = eng._enc_scalar(ch["gamma"])
-
-    def leaf_value(kind, v):
-        return eng._enc_scalar(v) if kind == "const" else col_vals[kind][v]
-
-    values = []   # protocol fold order (gates, permutation, lookups)
-    for gate in cs.gates:
-        for poly in gate.polys:
-            fn, leaves = _val_fn_for(poly)
-            values.append(fn(*[leaf_value(kind, v) for kind, v in leaves]))
-
-    chunks = _perm_layout(cs)
-    if chunks:
-        perm_cols = cs.permutation_columns
-        deltas = [pow(FR_DELTA, j, R) for j in range(len(perm_cols))]
-        values.append(_val_l0_one_minus_z(l0, zs[0]))
-        values.append(_val_llast_zz(l_last, zs[-1]))
-        for j in range(1, len(chunks)):
-            values.append(_val_l0_z_minus_prev(l0, zs[j], zs[j - 1],
-                                               (-(b + 1)) % n))
-        gidx = 0
-        for j, chunk in enumerate(chunks):
-            cvals = torch.stack([col_vals[c.kind][c.index] for c in chunk])
-            sigmas = torch.stack([sig[perm_cols.index(c)] for c in chunk])
-            bds = torch.stack([eng._enc_scalar(ch["beta"] * deltas[gidx + i]
-                                               % R)
-                               for i in range(len(chunk))])
-            values.append(_val_perm_product(zs[j], l_active, cvals, sigmas,
-                                            bds, beta_e, gamma_e, wq))
-            gidx += len(chunk)
-
-    for lk, (zc, ac, sc) in zip(cs.lookups, lk_parts):
-        comp_in = _compress(eng, [p[0] for p in lk.pairs], leaf_value, theta)
-        comp_tb = _compress(eng, [p[1] for p in lk.pairs], leaf_value, theta)
-        values.extend(_val_lookup_rules(zc, ac, sc, comp_in, comp_tb,
-                                        l0, l_last, l_active, beta_e,
-                                        gamma_e))
-
-    if not values:   # constraint-free circuit (reference timestamp quirk)
-        return eng.const_vec(0, n).contiguous()
-    N = len(values)
-    y = ch["y"]
-    return eng.weighted_sum(values, [pow(y, N - 1 - i, R) for i in range(N)])

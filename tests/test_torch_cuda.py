@@ -14,8 +14,11 @@ from halo2tpu_torch.curves.jpoint import affine_to_device
 from halo2tpu_torch.fields.bn254 import G1_GEN, Q, R
 from halo2tpu_torch.fields.jfield import (FQ, FR, ints_to_limbs, limbs_to_ints,
                                           neg)
-from halo2tpu_torch.ops import cuda_ec, cuda_field
+from halo2tpu_torch.ops import cuda_ec, cuda_field, field_prog
 from halo2tpu_torch.ops.msm import TABLE_W, msm, precompute_window_table
+from halo2tpu_torch.plonk import expression as ex
+from halo2tpu_torch.plonk import quotient
+from halo2tpu_torch.plonk.circuit import ConstraintSystem
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +50,93 @@ def test_mont_mul_kernel_matches_plain(dev, spec, p):
     # broadcast operand
     assert torch.equal(cuda_field.mont_mul(spec, a, b[:1]),
                        cuda_field.mont_mul_plain(spec, a, b[:1]))
+
+
+@pytest.mark.parametrize("spec,p", [(FR, R), (FQ, Q)])
+def test_mont_pow_kernel_matches_plain(dev, spec, p):
+    """One launch a call at 1, 16 and 4,097 lanes (edge values 0, 1, p - 1
+    and R mod p first), exponents 0, 1, 2 and p - 2."""
+    rng = np.random.default_rng(4)
+    edge = [0, 1, p - 1, (1 << 256) % p]
+    vals = edge + [int.from_bytes(rng.bytes(32), "big") % p
+                   for _ in range(4093)]
+    a = torch.from_numpy(ints_to_limbs(vals).copy()).to(dev)
+    for lanes in (1, 16, 4097):
+        for e in (0, 1, 2, p - 2):
+            before = cuda_field.mont_pow.launches
+            got = cuda_field.mont_pow(spec, a[:lanes], e)
+            assert cuda_field.mont_pow.launches == before + 1
+            assert torch.equal(got, cuda_field.mont_pow_plain(
+                spec, a[:lanes], e))
+    inv = cuda_field.mont_pow(spec, a[1:], p - 2)
+    assert torch.equal(cuda_field.mont_mul(spec, inv, a[1:]),
+                       spec.const("one_mont", dev).expand(a[1:].shape))
+
+
+def _wrap_gate():
+    a, f = ex.AdviceQuery(0, -3), ex.FixedQuery(1, 5)
+    return a * f + ex.Constant(7) - ex.InstanceQuery(0, -1) * ex.AdviceQuery(
+        2, 2) * a
+
+
+def _run_both(dev, prog, n, seed, stride_cols=3):
+    """prog through the kernel and the plain interpreter on random leaves,
+    each leaf a strided column view of an (n, stride_cols, 8) stack."""
+    g = torch.Generator().manual_seed(seed)
+    m = len(prog.leaf_keys)
+    stacks = torch.randint(-2**31, 2**31, (n, m * stride_cols, 8),
+                           generator=g, dtype=torch.int64)
+    stacks[..., 7] &= 0x0FFFFFFF
+    stacks = stacks.to(torch.int32).to(dev)
+    leaves = list(stacks.unbind(1))[::stride_cols]
+    consts = torch.randint(0, 2**28, (len(prog.const_keys), 8), generator=g,
+                           dtype=torch.int32).to(dev)
+    before = field_prog.field_prog.launches
+    got = field_prog.field_prog(FR, prog, leaves, consts, n)
+    assert field_prog.field_prog.launches == before + 1
+    return got, field_prog.field_prog_plain(FR, prog, leaves, consts, n)
+
+
+@pytest.mark.parametrize("n", [1, 200, 1000])
+def test_field_prog_kernel_matches_plain(dev, n):
+    """A part program with permutation and lookup rules (the RangeHarness
+    circuit) and a gate whose rotations wrap at both ends, at row counts
+    that are not multiples of the block, leaves as strided views."""
+    from chip_smoke import golden_circuits
+    cs = ConstraintSystem()
+    golden_circuits()["range_k7"][0].configure(cs)
+    for prog in (quotient.part_program(cs, n),
+                 quotient.compile_program([quotient.expr_ir(_wrap_gate())],
+                                          n)):
+        got, want = _run_both(dev, prog, n, seed=n)
+        assert torch.equal(got, want)
+
+
+def test_field_prog_many_slots_and_refusals(dev):
+    """A program of 13 slots (over 48 KB of shared memory a block) matches
+    the interpreter; a misaligned leaf and a wrong constant table are
+    refused."""
+    leaves = [ex.AdviceQuery(i % 5, i % 7 - 3) for i in range(1 << 12)]
+    while len(leaves) > 1:
+        leaves = [ex.Product(leaves[i], leaves[i + 1])
+                  if i % 4 else ex.Sum(leaves[i], leaves[i + 1])
+                  for i in range(0, len(leaves), 2)]
+    n = 300
+    prog = quotient.compile_program([quotient.expr_ir(leaves[0])], n)
+    assert prog.slots == 13
+    got, want = _run_both(dev, prog, n, seed=9, stride_cols=1)
+    assert torch.equal(got, want)
+    x = torch.zeros((n, 12), dtype=torch.int32, device=dev)
+    consts = torch.zeros((len(prog.const_keys), 8), dtype=torch.int32,
+                         device=dev)
+    ok = [torch.zeros((n, 8), dtype=torch.int32, device=dev)] * len(
+        prog.leaf_keys)
+    with pytest.raises(ValueError):
+        field_prog.field_prog(FR, prog, [x[:, 1:9]] + ok[1:], consts, n)
+    one_more = torch.zeros((len(prog.const_keys) + 1, 8), dtype=torch.int32,
+                           device=dev)
+    with pytest.raises(ValueError):
+        field_prog.field_prog(FR, prog, ok, one_more, n)
 
 
 def test_point_kernels_match_plain(dev):

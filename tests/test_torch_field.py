@@ -1,6 +1,8 @@
 """halo2tpu_torch field arithmetic against halo2tpu's jfield (XLA on CPU)
-and the Pallas mont_mul (interpret mode), and the JAX <-> port converters.
+and the Pallas mont_mul (interpret mode), mont_pow and inv against
+jfield's, and the JAX <-> port converters.
 Exact equality: these are finite-field values."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -73,6 +75,45 @@ def test_add_sub_neg_match_jfield(field):
     _same(jjf.add(sj, aj, bj), tjf.add(st, at, bt))
     _same(jjf.sub(sj, aj, bj), tjf.sub(st, at, bt))
     _same(jjf.neg(sj, aj), tjf.neg(st, at))
+
+
+def _raw_pair(p, rng):
+    """Raw Montgomery limbs, the same in both packages: the edge values 0,
+    1, p - 1 and R mod p (Montgomery one), then random values below p."""
+    vals = [0, 1, p - 1, (1 << 256) % p] + _vals(rng, p, 12)
+    u16 = tjf.ints_to_limbs16(vals)
+    return jnp.asarray(u16.astype(np.uint32)), convert.from_jax_limbs(u16)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("e", ["0", "1", "2", "65537", "p-2"])
+def test_mont_pow_matches_jfield(field, e):
+    """The port's mont_pow on the CPU (mont_pow_plain: the loop of
+    mont_mul_plain the kernel's one launch replaces) against halo2tpu's
+    jfield.mont_pow, and against the definition."""
+    p, sj, st = SPECS[field]
+    exp = p - 2 if e == "p-2" else int(e)
+    aj, at = _raw_pair(p, np.random.default_rng(17 + exp % 1000))
+    got = tjf.mont_pow(st, at, exp)
+    _same(jjf.mont_pow(sj, aj, exp), got)
+    assert torch.equal(got, cuda_field.mont_pow_plain(st, at, exp))
+    assert st.decode(got) == [pow(v, exp, p) for v in st.decode(at)]
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_inv_matches_jfield(field):
+    p, sj, st = SPECS[field]
+    aj, at = _raw_pair(p, np.random.default_rng(18))
+    aj, at = aj[1:], at[1:]                           # nonzero lanes
+    got = tjf.inv(st, at)
+    _same(jjf.inv(sj, aj), got)
+    assert st.decode(got) == [pow(v, -1, p) for v in st.decode(at)]
+
+
+def test_mont_pow_refuses_exponents_out_of_range():
+    with pytest.raises(ValueError):
+        cuda_field.mont_pow(tjf.FR, torch.zeros((1, 8), dtype=torch.int32),
+                            1 << 256)
 
 
 def test_scans_match_jfield():

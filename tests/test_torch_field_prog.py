@@ -1,0 +1,248 @@
+"""The quotient's part-program compiler (halo2tpu_torch/plonk/quotient.py)
+and the field-program interpreter (ops/field_prog.py::field_prog_plain)
+against halo2tpu.
+
+Every gate-poly structure of the RSA-SHA256, Timestamp, Square and
+RangeHarness circuits (configure only), compiled into a program and
+interpreted at n = 64, gives exactly halo2tpu's `quotient._val_fn_for`
+value on JAX CPU for the same leaves; a program folding several values by
+Horner gives the port engine's weighted_sum; slot counts stay within S_MAX
+(halo2tpu's composite Aadhaar gates included) and a program past it
+raises.  The whole part program runs in every proof of the byte-parity
+slice tests (tests/test_torch_slice_*.py, test_torch_golden.py)."""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from halo2tpu.circuits.aadhaar_qr import AadhaarQRVerifierCircuit
+from halo2tpu.circuits.rsa_sha256 import RSASha256Circuit as JaxRSACircuit
+from halo2tpu.fields.jfield import FR as JFR
+from halo2tpu.plonk import expression as jexpr
+from halo2tpu.plonk import quotient as jquot
+from halo2tpu.plonk.circuit import ConstraintSystem as JaxCS
+from halo2tpu_torch import convert
+from halo2tpu_torch.fields.bn254 import R
+from halo2tpu_torch.fields.jfield import FR
+from halo2tpu_torch.ops import field_prog as fp
+from halo2tpu_torch.plonk import expression as texpr
+from halo2tpu_torch.plonk import quotient
+from halo2tpu_torch.plonk.circuit import ConstraintSystem
+from halo2tpu_torch.plonk.domain import make_domain
+from halo2tpu_torch.plonk.engine import TorchEngine
+from halo2tpu_torch.plonk.srs import setup
+from test_torch_golden import jax_golden_circuits
+
+torch.set_num_threads(1)
+
+N = 64
+
+
+def _configured(circuit, cs_cls):
+    cs = cs_cls()
+    circuit.configure(cs)
+    return cs
+
+
+def _circuit_pairs():
+    """name -> (halo2tpu ConstraintSystem, the port's), configure only."""
+    jax_c = jax_golden_circuits()
+    port_c = chip_smoke.golden_circuits()
+    out = {name: (_configured(jax_c[name][0], JaxCS),
+                  _configured(port_c[name][0], ConstraintSystem))
+           for name in port_c}
+    rsa = chip_smoke.rsa_circuit()
+    out["rsa_sha256"] = (
+        _configured(JaxRSACircuit(rsa.msg, rsa.n, rsa.sig), JaxCS),
+        _configured(rsa, ConstraintSystem))
+    return out
+
+
+def _wrap_expr(mod):
+    """a(-3) * f(5) + 7 - i(-1) * a(2): rotations that wrap at both ends of
+    the rows, a constant and every leaf kind."""
+    a3 = mod.AdviceQuery(0, -3)
+    f5 = mod.FixedQuery(1, 5)
+    i1 = mod.InstanceQuery(0, -1)
+    a2 = mod.AdviceQuery(2, 2)
+    return mod.Sum(mod.Product(a3, f5), mod.Sum(
+        mod.Constant(7), mod.Neg(mod.Product(i1, a2))))
+
+
+def _structures():
+    """[(label, halo2tpu expr, port expr)]: the first poly of each
+    structure token of every circuit, and the wrapping expression."""
+    out = [("wrap", _wrap_expr(jexpr), _wrap_expr(texpr))]
+    seen = set()
+    for name, (jcs, tcs) in _circuit_pairs().items():
+        assert len(jcs.gates) == len(tcs.gates)
+        for gj, gt in zip(jcs.gates, tcs.gates):
+            for pj, pt in zip(gj.polys, gt.polys):
+                toks: list = []
+                quotient._walk(pt, [], toks)
+                key = "".join(toks)
+                if key not in seen:
+                    seen.add(key)
+                    out.append((f"{name}:{gt.name}:{len(seen)}", pj, pt))
+    return out
+
+
+STRUCTURES = _structures()
+
+
+class _Leaves:
+    """Random Montgomery columns, made on demand, as JAX arrays and as the
+    port's tensors (convert.py), and encoded constants."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.jax: dict = {}
+        self.port: dict = {}
+
+    def column(self, key):
+        if key not in self.jax:
+            vals = [int.from_bytes(self.rng.bytes(32), "big") % R
+                    for _ in range(N)]
+            self.jax[key] = JFR.encode(vals)
+            self.port[key] = convert.from_jax_limbs(np.asarray(self.jax[key]))
+        return self.jax[key], self.port[key]
+
+    def jax_leaf(self, kind, v):
+        if kind == "const":
+            return JFR.encode([v % R])[0]
+        return self.column((kind, v))[0]
+
+    def run(self, prog, consts: dict | None = None):
+        """prog through field_prog (the CPU interpreter): leaf keys (kind,
+        index) are this object's columns, const keys ("value", v) or from
+        `consts` (name -> int)."""
+        leaves = [self.column(k)[1] for k in prog.leaf_keys]
+        ints = [k[1] if k[0] == "value" else consts[k[0]]
+                for k in prog.const_keys]
+        return fp.field_prog(FR, prog, leaves, FR.encode(ints, "cpu"), N)
+
+
+def test_structures_cover_the_circuits():
+    labels = [s[0] for s in STRUCTURES]
+    assert any(lb.startswith("rsa_sha256:") for lb in labels)
+    assert any(lb.startswith("range_k7:") for lb in labels)
+    assert len(labels) == len(set(labels))
+
+
+@pytest.mark.parametrize("label,jexp,texp", STRUCTURES,
+                         ids=[s[0] for s in STRUCTURES])
+def test_gate_program_matches_halo2tpu(label, jexp, texp):
+    lv = _Leaves(sum(map(ord, label)))
+    fn, leaves = jquot._val_fn_for(jexp)
+    want = np.asarray(fn(*[lv.jax_leaf(kind, v) for kind, v in leaves]))
+    prog = quotient.compile_program([quotient.expr_ir(texp)], N)
+    assert prog.slots <= fp.S_MAX
+    got = lv.run(prog)
+    assert np.array_equal(convert.to_jax_limbs(got), want), label
+
+
+def test_program_rows_are_rotations():
+    """LOAD's rot is normalised mod n: a(-3) reads row i - 3 (wrapping to
+    the end), f(5) row i + 5 (wrapping to the start)."""
+    lv = _Leaves(3)
+    prog = quotient.compile_program([quotient.expr_ir(_wrap_expr(texpr))], N)
+    loads = {(lv_key, rot) for op, _, lv_key, rot in prog.code.tolist()
+             if op == fp.LOAD}
+    keys = prog.leaf_keys
+    assert (keys.index(("advice", 0)), N - 3) in loads
+    assert (keys.index(("fixed", 1)), 5) in loads
+    got = FR.decode(lv.run(prog))
+    a0 = FR.decode(lv.column(("advice", 0))[1])
+    f1 = FR.decode(lv.column(("fixed", 1))[1])
+    i0 = FR.decode(lv.column(("instance", 0))[1])
+    a2 = FR.decode(lv.column(("advice", 2))[1])
+    for i in range(N):
+        assert got[i] == (a0[(i - 3) % N] * f1[(i + 5) % N] + 7
+                          - i0[(i - 1) % N] * a2[(i + 2) % N]) % R
+
+
+@pytest.fixture(scope="module")
+def engine():
+    k = 6
+    return TorchEngine(make_domain(k, 3), setup(k, cache=False), "cpu")
+
+
+def test_horner_fold_matches_weighted_sum(engine):
+    """sum_i y^(N-1-i) v_i as one program (the Horner fold over every
+    structure's value, then the scale) equals the engine's weighted_sum
+    of the values, each run as a program of its own, times the scale."""
+    lv = _Leaves(5)
+    rng = np.random.default_rng(6)
+    y, zh = (int.from_bytes(rng.bytes(32), "big") % R for _ in range(2))
+    trees = [quotient.expr_ir(t) for _, _, t in STRUCTURES]
+    vals = [lv.run(quotient.compile_program([t], N)) for t in trees]
+    want = engine.scale(engine.weighted_sum(
+        vals, [pow(y, len(vals) - 1 - i, R) for i in range(len(vals))]), zh)
+    prog = quotient.compile_program(trees, N, fold=("y",), scale=("zh",))
+    assert prog.op_counts()["HORNER"] == len(trees) - 1
+    got = lv.run(prog, {"y": y, "zh": zh})
+    assert torch.equal(got, want)
+
+
+def test_program_past_s_max_raises():
+    """A balanced product of 2^S_MAX leaves needs S_MAX + 1 slots."""
+    leaves = [texpr.AdviceQuery(i, 0) for i in range(1 << fp.S_MAX)]
+    while len(leaves) > 1:
+        leaves = [texpr.Product(leaves[i], leaves[i + 1])
+                  for i in range(0, len(leaves), 2)]
+    with pytest.raises(ValueError, match="slots"):
+        quotient.compile_program([quotient.expr_ir(leaves[0])], N)
+    one_less = leaves[0].lhs
+    prog = quotient.compile_program([quotient.expr_ir(one_less)], N)
+    assert prog.slots == fp.S_MAX
+
+
+def test_several_values_need_a_fold():
+    tree = quotient.expr_ir(_wrap_expr(texpr))
+    with pytest.raises(ValueError, match="fold"):
+        quotient.compile_program([tree, tree], N)
+
+
+def _to_port(e):
+    """A halo2tpu expression as the port's (the same node classes)."""
+    if isinstance(e, jexpr.Constant):
+        return texpr.Constant(e.value)
+    for name in ("AdviceQuery", "FixedQuery", "InstanceQuery"):
+        if isinstance(e, getattr(jexpr, name)):
+            return getattr(texpr, name)(e.column_index, e.rotation)
+    if isinstance(e, jexpr.Neg):
+        return texpr.Neg(_to_port(e.expr))
+    cls = texpr.Sum if isinstance(e, jexpr.Sum) else texpr.Product
+    return cls(_to_port(e.lhs), _to_port(e.rhs))
+
+
+def test_composite_gates_fit_s_max():
+    """halo2tpu's composite Aadhaar circuit (configure only): every gate
+    poly, alone and all folded by y into one program, fits S_MAX."""
+    cs = _configured(AadhaarQRVerifierCircuit(None), JaxCS)
+    trees = [quotient.expr_ir(_to_port(p)) for g in cs.gates
+             for p in g.polys]
+    assert len(trees) > 100
+    worst = max(quotient.compile_program([t], 1 << 15).slots for t in trees)
+    folded = quotient.compile_program(trees, 1 << 15, fold=("y",))
+    assert worst <= fp.S_MAX and folded.slots <= fp.S_MAX
+
+
+def test_rsa_part_program_shape():
+    """The RSA-SHA256 part program: one value a gate poly, permutation rule
+    and lookup rule (333 at this circuit's configuration), one HORNER a
+    value after the first, the y and zh_inv constants, one OUT."""
+    tcs = _circuit_pairs()["rsa_sha256"][1]
+    chunks = -(-len(tcs.permutation_columns) // tcs.permutation_chunk_len())
+    n_values = (sum(len(g.polys) for g in tcs.gates) + 2 + (chunks - 1)
+                + chunks + 5 * len(tcs.lookups))
+    assert n_values == 333
+    assert len(quotient.part_values(tcs, 1 << 15)) == n_values
+    prog = quotient.part_program(tcs, 1 << 15)
+    ops = prog.op_counts()
+    assert ops["OUT"] == 1 and prog.code[-1, 0] == fp.OUT
+    assert ops["HORNER"] >= n_values - 1
+    assert ("y",) in prog.const_keys and ("zh_inv",) in prog.const_keys
+    assert prog.slots <= fp.S_MAX
+    assert ((prog.code[:, 0] != fp.LOAD)
+            | ((prog.code[:, 3] >= 0) & (prog.code[:, 3] < 1 << 15))).all()

@@ -12,12 +12,13 @@ Phases, run in order, each of which raises on failure (non-zero exit):
   2. kernels each kernel against its plain torch version, bitwise, at the
              main paths' shapes (fe_pow at 1, 16 and 4,097 lanes with
              exponents 0, 1, 2 and p - 2, Fr and Fq; field_prog on the
-             RSA-SHA256 part program at 2^15 rows, also against the per-op
-             route it replaces, at most 1/FIELD_PROG_OVER_CHAIN of its
-             time; fold_mixed at the three widths of a k=15
-             commit, fold_dbl_any at 2^20 lanes once and 16 lanes 8
-             times, fold_add at msm()'s and a warm proof's widths,
-             fold_add_tree at the warm proof's four tail shapes and msm()'s,
+             RSA-SHA256 and the composite part programs at 2^15 rows, also
+             against the per-op route it replaces, at most
+             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part;
+             fold_mixed at the three widths of a k=15 commit,
+             fold_dbl_any at 2^20 lanes once and 16 lanes 8 times,
+             fold_add at msm()'s and a warm proof's widths, fold_add_tree
+             at the warm proof's four tail shapes and msm()'s,
              fold_horner at both Horner combines, fold_mixed_tiled_rows at
              msm()'s full shape); kernel times as the median, min and max of
              3 rounds timed in turns, plain times, and the bound (the least
@@ -26,8 +27,10 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              the chains of launches they replace, and must not be slower;
              msm()'s tail also in one tree launch (the route ADD_WAVE is
              held against).
-  3. golden  Square k=4, Timestamp k=6 and RangeHarness k=7 (the port's
-             own circuits) proven with TorchEngine(device="cuda"),
+  3. golden  Square k=4, Timestamp k=6, RangeHarness k=7, Identity k=4,
+             Nullifier k=10 (degree 6: 8 quotient parts) and the QR
+             extractor harness k=8 (pair lookups over advice tables), the
+             port's own circuits, proven with TorchEngine(device="cuda"),
              byte-equal to tests/golden/torch_port_proofs.json (made by
              halo2tpu's HostEngine).
   4. slice   RSA-SHA256 at k=15 (1024-byte message, pinned key): setup,
@@ -46,11 +49,22 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              same vectors (phase 4's MSMContext) and, at n = 256, to the
              host G1.msm; wall times, peak memory; one row-fold launch, at
              most ADD_LAUNCHES_PER_MSM add-kernel launches, no fold_dbl_any.
-The launch counts of phases 4 and 5 are each zeroed just before the phase
-and read just after; every kernel of a path must have launched in it.  The
-port imports nothing of JAX or of halo2tpu; the script raises if either
-was loaded.  The line before the last is the kernels JSON; the last line
-is {"ok": true, "device": {...}}.  Without CUDA the script exits non-zero.
+  6. composite  the composite Aadhaar circuit (RSA-SHA256, QR extraction,
+             Poseidon nullifier, reveal flags, timestamp, signal) at the
+             default AadhaarParams, k=15, over the full 1137-byte golden
+             QR (700 bytes signed with the pinned key), on phase 4's SRS:
+             instances against the native outputs, keygen, a cold and two
+             warm proofs with phase times (same seed, same bytes), one more
+             under torch.profiler, verification, a tampered nullifier seed
+             rejected, launches and shapes per warm proof (one field_prog
+             launch for each of the 8 quotient parts), the part program's
+             size, the part cache's bytes, peak memory and the sha256.
+The launch counts of phases 4, 5 and 6 are each zeroed just before the
+phase and read just after; every kernel of a path must have launched in
+it.  The port imports nothing of JAX or of halo2tpu; the script raises if
+either was loaded.  The line before the last is the kernels JSON; the last
+line is {"ok": true, "device": {...}}.  Without CUDA the script exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -484,18 +498,17 @@ def per_op_part(eng, cs, n: int, leaf, ch: dict, zh_inv: int):
     return eng.scale(hv, zh_inv)
 
 
-def _field_prog_case(g, n: int, card: "Card", dev):
-    """The RSA-SHA256 part program at n rows on random leaves (strided
-    column views of one stack, as coeff_to_part_stack returns them) and
-    random challenges: (program, leaves by key, consts, ch, zh_inv, cs,
-    bound)."""
+def _field_prog_case(circuit, g, n: int, card: "Card", dev):
+    """A circuit's part program at n rows on random leaves (strided column
+    views of one stack, as coeff_to_part_stack returns them) and random
+    challenges: (program, leaves by key, consts, ch, zh_inv, cs, bound)."""
     import torch
     from halo2tpu_torch.fields.bn254 import R
     from halo2tpu_torch.fields.jfield import FR
     from halo2tpu_torch.plonk.circuit import ConstraintSystem
     from halo2tpu_torch.plonk.quotient import const_value, part_program
     cs = ConstraintSystem()
-    rsa_circuit().configure(cs)
+    circuit.configure(cs)
     prog = part_program(cs, n)
     m = len(prog.leaf_keys)
     stack = _rand_fe(g, n * m, dev).reshape(n, m, 8)
@@ -640,31 +653,36 @@ def phase_kernels(report: dict, card: Card) -> None:
                     lambda s=spec, x=x, e=e: chain_pow(s, x, e),
                     cuda_field.mont_pow(spec, x, e), 20)
 
-    # field_prog: the RSA-SHA256 part program at n = 2^15 rows (a k=15
-    # proof's part), bitwise against the plain interpreter and against the
-    # per-op route it replaces, timed against that route and its bound
+    # field_prog: the RSA-SHA256 and the composite part programs at n =
+    # 2^15 rows (a k=15 proof's part), bitwise against the plain
+    # interpreter and against the per-op route it replaces, timed against
+    # that route and its bound
     n_q = 1 << 15
-    prog, by_key, consts, ch, zh_inv, cs, bound = _field_prog_case(
-        g, n_q, card, dev)
-    leaves = [by_key[k] for k in prog.leaf_keys]
-    op_eng = _op_engine(dev)
     res = _build.resources.get("field_prog_kernel", {})
-    smem = prog.slots * 8 * 128 * 4
-    blocks = _occupancy(res.get("registers", 255), smem, 128)
-    ops = prog.op_counts()
-    check("field_prog", "field_prog rsa part",
-          lambda: field_prog(jfield.FR, prog, leaves, consts, n_q),
-          lambda: field_prog_plain(jfield.FR, prog, leaves, consts, n_q),
-          10, bound, plain_runs=1, rows=n_q,
-          instructions=int(prog.code.shape[0]), slots=prog.slots,
-          leaves=len(leaves), ops=ops, shared_bytes_per_block=smem,
-          blocks_per_sm=blocks, resident_blocks=min(
-              -(-n_q // 128), blocks * card.sms),
-          grid_blocks=-(-n_q // 128), chain_case="field_prog rsa part chain")
-    _chain_case(cases, "field_prog rsa part chain",
-                lambda: per_op_part(op_eng, cs, n_q, by_key.__getitem__, ch,
-                                    zh_inv),
-                field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
+    op_eng = _op_engine(dev)
+    for case, circuit in (("rsa", rsa_circuit()),
+                          ("composite", composite_circuit())):
+        prog, by_key, consts, ch, zh_inv, cs, bound = _field_prog_case(
+            circuit, g, n_q, card, dev)
+        leaves = [by_key[k] for k in prog.leaf_keys]
+        smem = prog.slots * 8 * 128 * 4
+        blocks = _occupancy(res.get("registers", 255), smem, 128)
+        check("field_prog", f"field_prog {case} part",
+              lambda p=prog, x=leaves, c=consts: field_prog(
+                  jfield.FR, p, x, c, n_q),
+              lambda p=prog, x=leaves, c=consts: field_prog_plain(
+                  jfield.FR, p, x, c, n_q),
+              10, bound, plain_runs=1, rows=n_q,
+              instructions=int(prog.code.shape[0]), slots=prog.slots,
+              leaves=len(leaves), ops=prog.op_counts(),
+              shared_bytes_per_block=smem, blocks_per_sm=blocks,
+              resident_blocks=min(-(-n_q // 128), blocks * card.sms),
+              grid_blocks=-(-n_q // 128),
+              chain_case=f"field_prog {case} part chain")
+        _chain_case(cases, f"field_prog {case} part chain",
+                    lambda c=cs, k=by_key, h=ch, z=zh_inv: per_op_part(
+                        op_eng, c, n_q, k.__getitem__, h, z),
+                    field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -999,17 +1017,78 @@ def _range_harness():
     return RangeHarness()
 
 
+def mini_qr() -> bytes:
+    """The synthetic 18-delimiter QR of tests/test_aadhaar_composite.py
+    (the reference's field layout, a 45-byte photo holding a 255): field 2
+    holds refid and timestamp digits, 4 the birth date, 5 the gender, 11
+    the pincode, 13 the state."""
+    fields = [b"86", b"3", b"1234" + b"20240718" + b"12" + b"4557",
+              b"Sumit Kumar", b"01-01-1984", b"M", b"CO X", b"East", b"",
+              b"B-31", b"", b"110051", b"KN", b"Delhi", b"RSP", b"GN",
+              b"KN2", b"1234"]
+    photo = bytes((i * 13 + 7) % 256 for i in range(45))
+    photo = photo[:20] + b"\xff" + photo[21:]
+    return b"\xff".join(fields) + b"\xff" + photo
+
+
+def _extractor_harness(data: bytes):
+    """The QR extractor over `data` (tests/test_qr_extractor.py's harness
+    with 4-bit lookups): the year through the qr_delim lookup (delimiter
+    2) and its four digits through qr_access, the gender byte after
+    delimiter 5 through both."""
+    from halo2tpu_torch.gadgets.flexgate import FlexGateConfig, GateChip
+    from halo2tpu_torch.gadgets.qr_extractor import (ExtractorChip,
+                                                     ExtractorConfig)
+    from halo2tpu_torch.gadgets.range import RangeChip, RangeStrategyConfig
+    from halo2tpu_torch.plonk.circuit import Circuit
+
+    class ExtractorHarness(Circuit):
+        def configure(self, cs):
+            gcfg = FlexGateConfig.configure(cs, 8)
+            rcfg = RangeStrategyConfig.configure(cs, gcfg, 4, 1)
+            return gcfg, rcfg, ExtractorConfig.configure(cs)
+
+        def synthesize(self, config, asn):
+            gcfg, rcfg, ecfg = config
+            gate = GateChip(gcfg, asn)
+            rng = RangeChip(rcfg, gate, asn)
+            rng.load_table()
+            ext = ExtractorChip(ecfg, gate, asn)
+            ext.load_data([gate.load_witness(b) for b in data])
+            year = ext.packed_digits(ext.delimiter_pos1(2), [5, 6, 7, 8], rng)
+            gender = ext.access_offset(ext.delimiter_pos1(5), 1)
+            assert (year.value, gender.value) == (2024, ord("M"))
+
+    return ExtractorHarness()
+
+
+IDENTITY_ARGS = dict(
+    reveal_age_above_18=True, age_above_18=1, qr_data_age_above_18=1,
+    reveal_gender=True, gender=77, qr_data_gender=77,
+    reveal_pincode=True, pincode=110051, qr_data_pincode=110051,
+    reveal_state=True, state=[68, 101, 108, 104, 105],
+    qr_data_state=[68, 101, 108, 104, 105])
+# the nullifier's photo: 124 bytes, 4 packed field elements
+NULLIFIER_PHOTO = bytes((i * 7 + 3) % 256 for i in range(124))
+
+
 def golden_circuits():
     """name -> (circuit, k, instances, rng_seed): the port's circuits of
     tests/golden/torch_port_proofs.json."""
+    from halo2tpu_torch.circuits.conditional_secrets import IdentityCircuit
+    from halo2tpu_torch.circuits.nullifier import NullifierCircuit
     from halo2tpu_torch.circuits.signal import SquareCircuit
     from halo2tpu_torch.circuits.timestamp import TimestampCircuit
     sq = SquareCircuit(5)
     rh = _range_harness()
+    nul = NullifierCircuit(12345678, NULLIFIER_PHOTO)
     return {
         "square_k4": (sq, 4, sq.instances(), 11),
         "timestamp_k6": (TimestampCircuit(2023, 7, 8, 12, 34, 56), 6, [], 27),
         "range_k7": (rh, 7, [], 22),
+        "identity_k4": (IdentityCircuit(**IDENTITY_ARGS), 4, [], 5),
+        "nullifier_k10": (nul, 10, nul.instances(), 31),
+        "extractor_k8": (_extractor_harness(mini_qr()), 8, [], 33),
     }
 
 
@@ -1247,6 +1326,168 @@ def phase_msm(report: dict, srs, eng) -> None:
         msm_peak_gib=peak / 2**30, msm_resident_gib=resident / 2**30)
 
 
+# -- phase 6: the composite Aadhaar circuit at k=15 --------------------------
+
+COMPOSITE_SEED = 12345678        # nullifier seed and signal of halo2tpu's
+COMPOSITE_SIGNAL = 4294967295    # slow test (tests/test_aadhaar_composite.py)
+COMPOSITE_SIGNED_LEN = 700
+# the golden QR's fields (tests/test_qr_extractor.py)
+COMPOSITE_FIELDS = {"gender": ord("M"), "pincode": 110051,
+                    "state_packed": int.from_bytes(b"Delhi" + bytes(11),
+                                                   "little")}
+
+
+def composite_circuit():
+    """The composite Aadhaar circuit at the default AadhaarParams (k=15)
+    over the full 1137-byte golden QR, the first 700 bytes signed with the
+    pinned key."""
+    from halo2tpu_torch.circuits.aadhaar_qr import (AadhaarParams,
+                                                    AadhaarQRVerifierCircuit,
+                                                    AadhaarWitness)
+    with open(os.path.join(ROOT, "tests/golden/qr_msg.json")) as f:
+        qr = bytes(json.load(f)["msg"])
+    with open(os.path.join(ROOT, "tests/golden/rsa_key_2048.json")) as f:
+        key = json.load(f)
+    sig = _pkcs1v15_sha256_sign(key["p"], key["q"], key["e"],
+                                qr[:COMPOSITE_SIGNED_LEN])
+    w = AadhaarWitness(qr, key["p"] * key["q"], sig,
+                       nullifier_seed=COMPOSITE_SEED,
+                       signal_hash=COMPOSITE_SIGNAL)
+    return AadhaarQRVerifierCircuit(w, AadhaarParams(
+        signed_len=COMPOSITE_SIGNED_LEN))
+
+
+def _check_composite_instances(c) -> None:
+    """The public instances are the native outputs, field by field, and
+    hold the golden QR's gender, pincode and state."""
+    from halo2tpu_torch.circuits.aadhaar_qr import (native_outputs,
+                                                    packed_photo_elements)
+    from halo2tpu_torch.ops.poseidon import hash_elements
+    w, p = c.w, c.p
+    o = native_outputs(w, p)
+    want = [w.nullifier_seed, w.signal_hash, o["pubkey_hash"],
+            o["nullifier"], o["timestamp"], o["above18"], o["gender"],
+            o["pincode"], o["state_packed"]]
+    qr = w.qr_data
+    if len(qr) != 1137 or c.instances() != [want]:
+        raise AssertionError("composite: instances differ from the native "
+                             "outputs")
+    if {k: o[k] for k in COMPOSITE_FIELDS} != COMPOSITE_FIELDS:
+        raise AssertionError(f"composite: fields {o} are not the QR's")
+    photo = qr[[i for i, b in enumerate(qr) if b == 255][17] + 1:]
+    nullifier = hash_elements([COMPOSITE_SEED] + packed_photo_elements(
+        photo, p.max_photo))
+    if o["nullifier"] != nullifier or o["above18"] != 1:
+        raise AssertionError("composite: nullifier or age flag is wrong")
+
+
+def phase_composite(report: dict, srs, cache_dir: str) -> None:
+    """Keygen, a cold and two warm proofs of the composite circuit on the
+    card, on phase 4's SRS (and, through it, its MSM window table)."""
+    import torch
+    from halo2tpu_torch.plonk.engine import TorchEngine
+    from halo2tpu_torch.plonk.keygen import keygen
+    from halo2tpu_torch.plonk.prover import _get_state, create_proof
+    from halo2tpu_torch.plonk.verifier import verify_proof
+    from halo2tpu_torch.utils.trace import Tracer
+
+    k = 15
+    t0 = time.perf_counter()
+    c = composite_circuit()
+    _check_composite_instances(c)
+    inst = c.instances()
+    log(f"composite: instances equal the native outputs "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    kg_tr = Tracer("composite_keygen")
+    t0 = time.perf_counter()
+    pk, vk = keygen(c, k, srs, device="cuda", tracer=kg_tr)
+    torch.cuda.synchronize()
+    kg = time.perf_counter() - t0
+    cs, d = vk.cs, vk.domain
+    parts = d.extended_n // d.n
+    log(f"composite: keygen {kg:.1f} s "
+        f"{json.dumps({p: round(v, 3) for p, v in kg_tr.phases.items()})}; "
+        f"degree {cs.degree()}, {parts} parts, {cs.num_advice} advice, "
+        f"{cs.num_fixed} fixed, {len(cs.permutation_columns)} permutation "
+        f"columns in {cs.num_permutation_chunks()} chunks of "
+        f"{cs.permutation_chunk_len()}, {len(cs.lookups)} lookups")
+    eng = TorchEngine(d, srs, "cuda")
+    t0 = time.perf_counter()
+    cold_proof = create_proof(pk, srs, c, inst, rng_seed=7, engine=eng)
+    cold = time.perf_counter() - t0
+    tr = Tracer("composite_proof")
+    before, shapes_before = _counts(), _shapes()
+    t0 = time.perf_counter()
+    proof = create_proof(pk, srs, c, inst, rng_seed=8, engine=eng, tracer=tr)
+    warm = time.perf_counter() - t0
+    per_warm = {n: v - before[n] for n, v in _counts().items()}
+    warm_shapes = {n: h - shapes_before[n] for n, h in _shapes().items()}
+    t0 = time.perf_counter()
+    again = create_proof(pk, srs, c, inst, rng_seed=8, engine=eng)
+    warm2 = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    from profile_proof import profile_run
+    profiled, prof = profile_run(
+        lambda: create_proof(pk, srs, c, inst, rng_seed=8, engine=eng),
+        cache_dir)
+    st = _get_state(pk, eng)
+    prog = st.quotient_program
+    sha = hashlib.sha256(proof).hexdigest()
+    phases = {p: round(v, 3) for p, v in tr.phases.items()}
+    log(f"composite: cold proof {cold:.2f} s, warm proofs {warm:.2f} s, "
+        f"{warm2:.2f} s; proof {len(proof)} bytes")
+    log(f"composite: warm phases {json.dumps(phases)}")
+    log(f"composite: part program {prog.code.shape[0]} instructions "
+        f"{json.dumps(prog.op_counts())}, {prog.slots} slots, "
+        f"{len(prog.leaf_keys)} leaves, {len(prog.const_keys)} constants")
+    log(f"composite: part cache holds {st.parts_cached_bytes} bytes of "
+        f"fixed and sigma parts (budget left {st._parts_budget} bytes)")
+    log(f"composite: peak CUDA memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes)")
+    for name, hist in warm_shapes.items():
+        if hist:
+            log(f"composite: warm proof shapes {name} ({SHAPE_KEYS[name]}: "
+                f"launches) {json.dumps(_shape_table(hist))}")
+    log(f"composite: launches over keygen + 3 proofs {json.dumps(launches)}")
+    log(f"composite: launches per warm proof {json.dumps(per_warm)}")
+    log(f"composite: profiled warm proof {json.dumps(prof)}")
+    log(f"composite: warm proof sha256 {sha}")
+    if per_warm["field_prog"] != parts or parts != 8:
+        raise AssertionError(f"composite: {per_warm['field_prog']} field_prog "
+                             f"launches in a warm proof, {parts} parts")
+    if again != proof or profiled != proof:
+        raise AssertionError("composite: same seed gave different bytes")
+    if not verify_proof(vk, srs, inst, proof):
+        raise AssertionError("composite: warm proof does not verify")
+    if not verify_proof(vk, srs, inst, cold_proof):
+        raise AssertionError("composite: cold proof does not verify")
+    bad = [list(inst[0])]
+    bad[0][0] ^= 1
+    if verify_proof(vk, srs, bad, proof):
+        raise AssertionError("composite: verifies with nullifier_seed ^ 1")
+    _record_path(report, "composite_k15_keygen_and_3_proofs", launches,
+                 ("mont_mul", "fe_pow", "field_prog", "fold_mixed",
+                  "fold_add_tree", "fold_horner"))
+    for name, n in per_warm.items():
+        report[name]["composite_launches_per_warm_proof"] = n
+    report["field_prog"].update(
+        composite_keygen_s=kg, composite_cold_proof_s=cold,
+        composite_warm_proof_s=[warm, warm2], composite_phases=phases,
+        composite_peak_bytes=peak,
+        composite_parts_cached_bytes=st.parts_cached_bytes,
+        composite_program={"instructions": int(prog.code.shape[0]),
+                           "slots": prog.slots,
+                           "leaves": len(prog.leaf_keys)},
+        composite_profiled_warm_proof=prof, composite_proof_sha256=sha)
+    log("composite: proofs verify, nullifier_seed ^ 1 is rejected; same "
+        "seed, same bytes")
+
+
 def _loaded_reference() -> list:
     """Modules of JAX or of the JAX package (halo2tpu) in this process."""
     return sorted(m for m in sys.modules
@@ -1315,6 +1556,8 @@ def main() -> int:
         phase_golden()
         srs, eng = phase_slice(report, cache_dir)
         phase_msm(report, srs, eng)
+        del eng
+        phase_composite(report, srs, cache_dir)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     loaded = _loaded_reference()

@@ -20,6 +20,7 @@ launch) combines them.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 
@@ -182,13 +183,40 @@ def points_tag(points) -> str:
     return h.hexdigest()[:16]
 
 
+def _load_table(path: str, shape: tuple):
+    """The table stored at path, or None when there is none or it is not
+    a readable int32 array of `shape` (the caller rebuilds it)."""
+    try:
+        host = np.load(path, mmap_mode="r")
+        if host.shape != shape or host.dtype != np.int32:
+            return None
+        return np.array(host)
+    except (OSError, ValueError, EOFError):
+        return None
+
+
+def _save_table(path: str, table: np.ndarray) -> None:
+    """Write the table atomically; a cache that cannot be written is
+    skipped (the cache is best-effort)."""
+    tmp = f"{path}.{os.getpid()}.tmp.npy"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(tmp, table)
+        os.replace(tmp, path)
+    except OSError:
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
+
+
 class MSMContext:
     """Device-resident bases (padded to a power of two) and their windowed
     multiple table (lazily built, (TABLE_W, npad, 3, 8) int32).
 
     cache_tag: when set, the built table persists to
     $HALO2TPU_CACHE (default <repo>/.cache)/msm_table_torch_<tag>.npy,
-    written atomically; a file of the wrong shape is ignored."""
+    written atomically; best-effort: a file that cannot be read or is of
+    the wrong shape or dtype is rebuilt, a directory that cannot be
+    written is skipped."""
 
     def __init__(self, points: list, cache_tag: str | None = None,
                  device="cuda"):
@@ -214,18 +242,13 @@ class MSMContext:
             npad = self.points.shape[0]
             shape = (TABLE_W, npad, 3, 8)
             path = self._table_path()
-            if path and os.path.exists(path):
-                host = np.load(path, mmap_mode="r")
-                if host.shape == shape and host.dtype == np.int32:
-                    self._table = torch.from_numpy(np.array(host)).to(
-                        self.device)
-                    return self._table
+            host = _load_table(path, shape) if path else None
+            if host is not None:
+                self._table = torch.from_numpy(host).to(self.device)
+                return self._table
             self._table = precompute_window_table(self.points)
             if path:
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                tmp = f"{path}.{os.getpid()}.tmp.npy"
-                np.save(tmp, self._table.cpu().numpy())
-                os.replace(tmp, path)
+                _save_table(path, self._table.cpu().numpy())
         return self._table
 
     def partials(self, plain_limbs, planes: int = NUM_WINDOWS,

@@ -17,6 +17,7 @@ are device times, not enqueue times.
 """
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 
 import numpy as np
@@ -43,9 +44,9 @@ class _PkState:
     n-domain Lagrange columns, coefficient polys, per-part Lagrange-selector
     and c_q omega^i vectors, Z_H constants, the quotient's part program
     (compiled at the first proof) and (within a byte budget) the witness-
-    independent fixed/sigma part values."""
-
-    parts_cache_bytes = 4600 << 20
+    independent fixed/sigma part values.  The budget is
+    $HALO2TPU_PARTS_CACHE_MB (default 4600) MiB, read when the state is
+    made; parts beyond it are recomputed at every proof."""
 
     def __init__(self, pk: ProvingKey, eng):
         d = pk.vk.domain
@@ -84,7 +85,9 @@ class _PkState:
         self.quotient_program = None
         self._fixed_parts = [None] * step
         self._sigma_parts = [None] * step
-        self._parts_budget = self.parts_cache_bytes
+        self._parts_budget = int(os.environ.get(
+            "HALO2TPU_PARTS_CACHE_MB", "4600")) << 20
+        self.parts_cached_bytes = 0
 
     def _cached_parts(self, eng, q, cache, polys):
         if cache[q] is None:
@@ -97,6 +100,7 @@ class _PkState:
                 return parts            # over budget: recompute next proof
             cache[q] = list(torch.stack(parts).unbind(0))
             self._parts_budget -= est
+            self.parts_cached_bytes += est
         return cache[q]
 
     def fixed_parts(self, eng, q):

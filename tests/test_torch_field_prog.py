@@ -2,13 +2,15 @@
 and the field-program interpreter (ops/field_prog.py::field_prog_plain)
 against halo2tpu.
 
-Every gate-poly structure of the RSA-SHA256, Timestamp, Square and
-RangeHarness circuits (configure only), compiled into a program and
+Every gate-poly structure of the RSA-SHA256 circuit and the golden
+circuits (Square, Timestamp, RangeHarness, Identity, Nullifier and the QR
+extractor harness; configure only), compiled into a program and
 interpreted at n = 64, gives exactly halo2tpu's `quotient._val_fn_for`
 value on JAX CPU for the same leaves; a program folding several values by
 Horner gives the port engine's weighted_sum; slot counts stay within S_MAX
 (halo2tpu's composite Aadhaar gates included) and a program past it
-raises.  The whole part program runs in every proof of the byte-parity
+raises.  Whole part programs (the composite's among them) equal the
+per-op route they replaced, and run in every proof of the byte-parity
 slice tests (tests/test_torch_slice_*.py, test_torch_golden.py)."""
 import numpy as np
 import pytest
@@ -246,3 +248,49 @@ def test_rsa_part_program_shape():
     assert prog.slots <= fp.S_MAX
     assert ((prog.code[:, 0] != fp.LOAD)
             | ((prog.code[:, 3] >= 0) & (prog.code[:, 3] < 1 << 15))).all()
+
+
+class _NoCard:
+    """chip_smoke._field_prog_case's card, for the bound it is not asked
+    for here."""
+
+    @staticmethod
+    def bound(nbytes, mul32):
+        return {}
+
+
+@pytest.mark.parametrize("name", ["composite", "nullifier_k10",
+                                  "extractor_k8", "rsa_sha256"])
+def test_part_program_matches_the_per_op_route(name):
+    """A whole part program (gates, permutation chunks, lookups, the y-fold
+    and 1 / Z_H), interpreted at n = 64 on random leaves and challenges,
+    equals the per-op route the prover took before field_prog
+    (chip_smoke.per_op_part): the composite at the default AadhaarParams
+    (permutation chunks of 4, lookups over advice tables), Nullifier
+    (degree 6), the extractor harness and RSA-SHA256."""
+    circuit = {"composite": chip_smoke.composite_circuit,
+               "rsa_sha256": chip_smoke.rsa_circuit}.get(
+        name, lambda: chip_smoke.golden_circuits()[name][0])()
+    g = torch.Generator().manual_seed(5)
+    prog, by_key, consts, ch, zh_inv, cs, _ = chip_smoke._field_prog_case(
+        circuit, g, N, _NoCard, "cpu")
+    got = fp.field_prog(FR, prog, [by_key[k] for k in prog.leaf_keys],
+                        consts, N)
+    want = chip_smoke.per_op_part(chip_smoke._op_engine(torch.device("cpu")),
+                                  cs, N, by_key.__getitem__, ch, zh_inv)
+    assert torch.equal(got, want)
+
+
+def test_composite_part_program_shape():
+    """The composite's part program at k=15: one value a gate poly,
+    permutation rule and lookup rule, 5 slots (it fits S_MAX), 8 parts."""
+    tcs = _configured(chip_smoke.composite_circuit(), ConstraintSystem)
+    assert (tcs.degree(), tcs.permutation_chunk_len()) == (6, 4)
+    assert make_domain(15, tcs.degree()).extended_n == 8 << 15
+    chunks = -(-len(tcs.permutation_columns) // tcs.permutation_chunk_len())
+    n_values = (sum(len(g.polys) for g in tcs.gates) + 2 + (chunks - 1)
+                + chunks + 5 * len(tcs.lookups))
+    assert len(quotient.part_values(tcs, 1 << 15)) == n_values == 500
+    prog = quotient.part_program(tcs, 1 << 15)
+    assert (prog.code.shape[0], prog.slots, len(prog.leaf_keys)) == (
+        10143, 5, 849)

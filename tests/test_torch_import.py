@@ -48,7 +48,12 @@ def test_proof_without_jax_subprocess():
 def test_import_needs_no_cuda_nvcc_or_triton():
     code = ("import sys, halo2tpu_torch, halo2tpu_torch.plonk.prover, "
             "halo2tpu_torch.plonk.verifier, halo2tpu_torch.ops.cuda_ec, "
-            "halo2tpu_torch.ops.msm, halo2tpu_torch.convert\n"
+            "halo2tpu_torch.ops.msm, halo2tpu_torch.convert, "
+            "halo2tpu_torch.ops.poseidon, halo2tpu_torch.gadgets.poseidon, "
+            "halo2tpu_torch.gadgets.qr_extractor, "
+            "halo2tpu_torch.circuits.nullifier, "
+            "halo2tpu_torch.circuits.conditional_secrets, "
+            "halo2tpu_torch.circuits.aadhaar_qr\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
             "assert _build._lib is None\n")
@@ -74,6 +79,10 @@ def test_port_and_chip_smoke_import_nothing_of_halo2tpu():
     for d, _, files in os.walk(os.path.join(ROOT, "halo2tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
+    for rel in ("ops/poseidon.py", "gadgets/poseidon.py",
+                "gadgets/qr_extractor.py", "circuits/nullifier.py",
+                "circuits/conditional_secrets.py", "circuits/aadhaar_qr.py"):
+        assert os.path.join(ROOT, "halo2tpu_torch", rel) in paths, rel
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imports_of(p)
            if m == "halo2tpu" or m.startswith("halo2tpu.") or m == "jax"

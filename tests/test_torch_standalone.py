@@ -21,7 +21,7 @@ from halo2tpu_torch.plonk.srs import setup
 from halo2tpu_torch.plonk.verifier import verify_proof
 
 from chip_smoke import golden_circuits
-from test_torch_golden import jax_golden_circuits
+from test_torch_golden import GOLDEN_NAMES, jax_golden_circuits
 
 torch.set_num_threads(1)
 
@@ -40,7 +40,7 @@ def test_keccak_matches_halo2tpu():
         assert keccak256(data) == jax_keccak(data)
 
 
-@pytest.mark.parametrize("name", ["square_k4", "timestamp_k6", "range_k7"])
+@pytest.mark.parametrize("name", GOLDEN_NAMES)
 def test_structure_digest_matches_halo2tpu(name):
     c = golden_circuits()[name][0]
     cj = jax_golden_circuits()[name][0]

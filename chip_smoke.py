@@ -14,7 +14,12 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              exponents 0, 1, 2 and p - 2, Fr and Fq; field_prog on the
              RSA-SHA256 and the composite part programs at 2^15 rows, also
              against the per-op route it replaces, at most
-             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part;
+             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part; the NTT's
+             forward, inverse, coset and h-chunk entries at n = 2^4-2^10
+             with C = 1, 3, 8 columns and batch-less, and at n = 2^15 with
+             C = 64, 60 and 1 (timed); add / sub / neg over Fr and Fq at
+             the edge values and broadcast operands, timed at 32,768 and
+             2^20 lanes and a 64-column stack plus a per-row operand;
              fold_mixed at the three widths of a k=15 commit,
              fold_dbl_any at 2^20 lanes once and 16 lanes 8 times,
              fold_add at msm()'s and a warm proof's widths, fold_add_tree
@@ -40,10 +45,11 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              lanes unless it is one row; at most ADD_LAUNCHES_PER_PROOF
              launches of the add kernel's entries and no fold_dbl_any; one
              field_prog launch a quotient part; at most
-             MONT_MUL_ONE_LANE_PER_PROOF one-lane mont_mul launches), peak
-             memory; one more warm proof under torch.profiler (every CUDA
-             kernel the card ran and the device busy share,
-             profile_proof.profile_run); the warm proof's sha256.
+             MONT_MUL_ONE_LANE_PER_PROOF one-lane mont_mul launches; no
+             run of the plain NTT loop on the card), peak memory; one more
+             warm proof under torch.profiler (every CUDA kernel the card
+             ran and the device busy share, profile_proof.profile_run);
+             the warm proof's sha256, held to RSA_PROOF_SHA256.
   5. msm     the bit-serial msm() over the 2^15 Lagrange bases of phase 4's
              SRS, 8 scalar vectors, equal to the windowed commits of the
              same vectors (phase 4's MSMContext) and, at n = 256, to the
@@ -57,8 +63,10 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              warm proofs with phase times (same seed, same bytes), one more
              under torch.profiler, verification, a tampered nullifier seed
              rejected, launches and shapes per warm proof (one field_prog
-             launch for each of the 8 quotient parts), the part program's
-             size, the part cache's bytes, peak memory and the sha256.
+             launch for each of the 8 quotient parts, no run of the plain
+             NTT loop on the card), the part program's size, the part
+             cache's bytes, peak memory and the sha256, held to
+             COMPOSITE_PROOF_SHA256.
 The launch counts of phases 4, 5 and 6 are each zeroed just before the
 phase and read just after; every kernel of a path must have launched in
 it.  The port imports nothing of JAX or of halo2tpu; the script raises if
@@ -117,7 +125,15 @@ FIELD_PROG_OVER_CHAIN = 20
 MONT_MUL_ONE_LANE_PER_PROOF = 500
 SOURCES = {"mont_mul": "halo2tpu_torch/csrc/mont_mul.cu",
            "fe_pow": "halo2tpu_torch/csrc/mont_mul.cu",
-           "field_prog": "halo2tpu_torch/csrc/field_prog.cu"}
+           "field_prog": "halo2tpu_torch/csrc/field_prog.cu",
+           "ntt": "halo2tpu_torch/csrc/ntt.cu",
+           "field_addsub": "halo2tpu_torch/csrc/field_addsub.cu"}
+# the proofs' bytes at their seeds (RSA-SHA256 k=15, seed 4; the composite
+# k=15, seed 8), unchanged since the kernels that prove them were ported
+RSA_PROOF_SHA256 = ("2567c205a68a04a28dbd9df0fc0d98e9"
+                    "7a3589709dfd10e98b87a76f3b2cbeb9")
+COMPOSITE_PROOF_SHA256 = ("d7ee4f98ff4892a518e5757eda473410"
+                          "864e3126f606cb9a17a2c3f51361afa1")
 
 
 def log(msg: str) -> None:
@@ -529,6 +545,19 @@ def _field_prog_case(circuit, g, n: int, card: "Card", dev):
     return prog, by_key, consts, ch, zh_inv, cs, bound
 
 
+def _ntt_entries(tntt, plan, a, pre, post):
+    """The NTT's four entries on stack a: (entry, kernel call, plain call,
+    scale products a row and column, per-row vectors read)."""
+    return [("coset", lambda: tntt.ntt(plan, a, pre=pre),
+             lambda: tntt.ntt_plain(plan, a, pre=pre), 1, 1),
+            ("forward", lambda: tntt.ntt(plan, a),
+             lambda: tntt.ntt_plain(plan, a), 0, 0),
+            ("inverse", lambda: tntt.intt(plan, a),
+             lambda: tntt.intt_plain(plan, a), 1, 0),
+            ("h_chunk", lambda: tntt.intt(plan, a, post=post),
+             lambda: tntt.intt_plain(plan, a, post=post), 2, 1)]
+
+
 def _occupancy(registers: int, smem: int, threads: int) -> int:
     """Blocks an SM can hold (H100: 65,536 registers allocated 256 a warp,
     228 KB of shared memory with 1 KB reserved a block, 32 blocks, 2,048
@@ -544,7 +573,9 @@ def phase_kernels(report: dict, card: Card) -> None:
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.fields.bn254 import Q, R
     from halo2tpu_torch.curves.jpoint import identity_points
+    from halo2tpu_torch.fields.bn254 import fr_root_of_unity
     from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops import ntt as tntt
     from halo2tpu_torch.ops.field_prog import field_prog, field_prog_plain
     from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
 
@@ -683,6 +714,85 @@ def phase_kernels(report: dict, card: Card) -> None:
                     lambda c=cs, k=by_key, h=ch, z=zh_inv: per_op_part(
                         op_eng, c, n_q, k.__getitem__, h, z),
                     field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
+
+    # the NTT (ops/ntt.py, csrc/ntt.cu): forward, inverse, coset (the
+    # quotient's pre-scale) and h-chunk (inverse and post-scale) entries,
+    # bitwise against the plain Stockham loop and its scales, at every shape
+    # the proofs transform: k = 4-10 (the golden circuits) at C = 1, 3 and
+    # 8 and the batch-less (n, 8); k = 15 at a stack chunk of 64 columns,
+    # the composite's 60-column tail and one column, also timed (the main
+    # path's shape first: the quotient's coset NTT of 64 columns)
+    ntt_checked = 0
+    for k, C in ([(k, C) for k in (4, 6, 8, 10) for C in (1, 3, 8, None)]
+                 + [(15, 64), (15, 60), (15, 1)]):
+        n = 1 << k
+        plan = tntt.get_plan(n, fr_root_of_unity(k), dev)
+        a = _rand_fe(g, n * (C or 1), dev).reshape(
+            (n, 8) if C is None else (n, C, 8))
+        pre, post = _rand_fe(g, n, dev), _rand_fe(g, n, dev)
+        cols = C or 1
+        for entry, fn, plain, scales, vec in _ntt_entries(tntt, plan, a, pre,
+                                                          post):
+            if k < 15:
+                err = _max_abs_err(fn(), plain())
+                if err:
+                    raise AssertionError(f"ntt {entry} n={n} C={C}: kernel "
+                                         f"!= plain ({err})")
+                ntt_checked += 1
+                continue
+            products = cols * ((n // 2) * k + scales * n)
+            nbytes = (2 * n * cols + n // 2 + vec * n + 1) * 32
+            check("ntt", f"ntt {entry} n{n} C{cols}", fn, plain,
+                  20 if cols > 1 else 500,
+                  card.bound(nbytes, products * MUL32_PER_MONT), plain_runs=1,
+                  n=n, C=cols, entry=entry,
+                  passes=len(tntt.pass_shapes(k, cols)))
+            ntt_checked += 1
+    log(f"kernels: ntt bitwise equal to its plain version in {ntt_checked} "
+        "cases (4 entries, 15 shapes)")
+
+    # field add / sub / neg (cuda_field.add_sub, csrc/field_addsub.cu),
+    # Fr and Fq, the edge values 0, 1 and p - 1 first, bitwise against the
+    # plain versions; timed at 32,768 lanes (a scan round and tree-sum step
+    # at k=15), at a stack of 64 columns with a broadcast per-row operand
+    # (a coset column times its row), and at 2^20 lanes
+    for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
+        edge = torch.from_numpy(jfield.ints_to_limbs(
+            [0, 1, p - 1]).copy()).to(dev)
+        x = torch.cat([edge.repeat_interleave(3, 0), _rand_fe(g, 4087, dev)])
+        y = torch.cat([edge.repeat(3, 1), _rand_fe(g, 4087, dev)])
+        for op, fn, plain in (("add", cuda_field.add, cuda_field.add_plain),
+                              ("sub", cuda_field.sub, cuda_field.sub_plain)):
+            for xx, yy in ((x, y), (x, y[:1]), (y[:1], x)):
+                err = _max_abs_err(fn(spec, xx, yy), plain(spec, xx, yy))
+                if err:
+                    raise AssertionError(f"field_addsub {op} {fname}: kernel "
+                                         f"!= plain ({err})")
+        if _max_abs_err(cuda_field.neg(spec, x),
+                        cuda_field.neg_plain(spec, x)):
+            raise AssertionError(f"field_addsub neg {fname}: kernel != plain")
+    entries = {"add": (cuda_field.add, cuda_field.add_plain),
+               "sub": (cuda_field.sub, cuda_field.sub_plain),
+               "neg": (cuda_field.neg, cuda_field.neg_plain)}
+    for lanes, op, bcast, iters in ((32768, "add", False, 2000),
+                                    (32768 * 64, "add", True, 200),
+                                    (1 << 20, "add", False, 200),
+                                    (1 << 20, "sub", False, 200),
+                                    (1 << 20, "neg", False, 200)):
+        x = _rand_fe(g, lanes, dev)
+        if bcast:
+            x = x.reshape(32768, 64, 8)
+            y = _rand_fe(g, 32768, dev).reshape(32768, 1, 8)
+        else:
+            y = _rand_fe(g, lanes, dev)
+        args = (x,) if op == "neg" else (x, y)
+        fn, plain = entries[op]
+        check("field_addsub",
+              f"field_addsub {op} L{lanes}" + (" + (n, 1)" if bcast else ""),
+              lambda f=fn, a=args: f(jfield.FR, *a),
+              lambda f=plain, a=args: f(jfield.FR, *a), iters,
+              card.bound(sum(a.numel() for a in args) * 4 + lanes * 32, 0),
+              lanes=lanes, op=op, broadcast=bcast)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -864,6 +974,8 @@ def phase_kernels(report: dict, card: Card) -> None:
     replaces = {"mont_mul": "halo2tpu/ops/pallas_field.py:347",
                 "fe_pow": "halo2tpu/fields/jfield.py:331",
                 "field_prog": "halo2tpu/plonk/quotient.py:258",
+                "ntt": "halo2tpu/ops/ntt.py:69",
+                "field_addsub": "halo2tpu/fields/jfield.py:283",
                 "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
                 "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
                 "fold_mixed_tiled_rows": "halo2tpu/ops/pallas_ec.py:291",
@@ -924,11 +1036,13 @@ def phase_kernels(report: dict, card: Card) -> None:
 # -- launch counts -----------------------------------------------------------
 
 def _wrappers() -> dict:
-    from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops import cuda_ec, cuda_field, ntt
     from halo2tpu_torch.ops.field_prog import field_prog
     return {"mont_mul": cuda_field.mont_mul,
             "fe_pow": cuda_field.mont_pow,
             "field_prog": field_prog,
+            "ntt": ntt.ntt_kernel,
+            "field_addsub": cuda_field.add_sub,
             "fold_mixed": cuda_ec.fold_mixed,
             "fold_mixed_tiled": cuda_ec.fold_mixed_tiled,
             "fold_mixed_tiled_rows": cuda_ec.fold_mixed_tiled_rows,
@@ -940,9 +1054,20 @@ def _wrappers() -> dict:
 
 
 def _zero_counts() -> None:
+    from halo2tpu_torch.ops import ntt
     for w in _wrappers().values():
         w.launches = 0
         w.shapes.clear()
+    ntt._ntt_run.cuda_calls = 0
+
+
+def _check_no_plain_ntt(path: str) -> None:
+    """No transform of the path ran the plain Stockham loop on the card."""
+    from halo2tpu_torch.ops import ntt
+    if ntt._ntt_run.cuda_calls:
+        raise AssertionError(f"{path}: the plain NTT loop ran "
+                             f"{ntt._ntt_run.cuda_calls} times on CUDA "
+                             "tensors")
 
 
 def _counts() -> dict:
@@ -956,6 +1081,7 @@ def _shapes() -> dict:
 
 SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
               "field_prog": "rows x instructions",
+              "ntt": "n x C x passes", "field_addsub": "lanes x op",
               "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
               "fold_mixed_tiled_rows": "lanes x C x rows",
@@ -966,6 +1092,8 @@ SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
 KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "fe_pow": "mont_pow_kernel",
              "field_prog": "field_prog_kernel",
+             "ntt": "ntt_pass_kernel",
+             "field_addsub": "field_addsub_kernel",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
              "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
@@ -1218,17 +1346,25 @@ def phase_slice(report: dict, cache_dir: str):
         f"{warm_shapes['mont_mul'][(32768,)]}; fe_pow (one an inversion) "
         f"{per_warm['fe_pow']}")
     log(f"slice: profiled warm proof {json.dumps(prof)}")
+    log(f"slice: CUDA kernels per warm proof {prof['cuda_kernels']}, device "
+        f"busy share {prof['busy_share']:.4f}")
     log(f"slice: warm proof sha256 {sha}")
     if again != proof or profiled != proof:
         raise AssertionError("slice: same seed gave different proof bytes")
+    if sha != RSA_PROOF_SHA256:
+        raise AssertionError(f"slice: proof sha256 {sha}, expected "
+                             f"{RSA_PROOF_SHA256}")
+    _check_no_plain_ntt("slice")
     if not verify_proof(vk, srs, c.instances(), proof):
         raise AssertionError("slice: warm proof does not verify")
     if not verify_proof(vk, srs, c.instances(), cold_proof):
         raise AssertionError("slice: cold proof does not verify")
     _record_path(report, "rsa_k15_keygen_and_3_proofs", launches,
-                 ("mont_mul", "fe_pow", "field_prog", "fold_mixed",
-                  "fold_add", "fold_add_any", "fold_add_tree", "fold_horner",
-                  "fold_dbl_any"))
+                 ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
+                  "fold_mixed", "fold_add", "fold_add_any", "fold_add_tree",
+                  "fold_horner", "fold_dbl_any"))
+    report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
+                         quotient_s=tr.phases["quotient"])
     report["field_prog"].update(warm_proof_s=warm,
                                 quotient_s=tr.phases["quotient"],
                                 profiled_warm_proof=prof,
@@ -1456,7 +1592,13 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     log(f"composite: launches over keygen + 3 proofs {json.dumps(launches)}")
     log(f"composite: launches per warm proof {json.dumps(per_warm)}")
     log(f"composite: profiled warm proof {json.dumps(prof)}")
+    log(f"composite: CUDA kernels per warm proof {prof['cuda_kernels']}, "
+        f"device busy share {prof['busy_share']:.4f}")
     log(f"composite: warm proof sha256 {sha}")
+    if sha != COMPOSITE_PROOF_SHA256:
+        raise AssertionError(f"composite: proof sha256 {sha}, expected "
+                             f"{COMPOSITE_PROOF_SHA256}")
+    _check_no_plain_ntt("composite")
     if per_warm["field_prog"] != parts or parts != 8:
         raise AssertionError(f"composite: {per_warm['field_prog']} field_prog "
                              f"launches in a warm proof, {parts} parts")
@@ -1471,10 +1613,12 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     if verify_proof(vk, srs, bad, proof):
         raise AssertionError("composite: verifies with nullifier_seed ^ 1")
     _record_path(report, "composite_k15_keygen_and_3_proofs", launches,
-                 ("mont_mul", "fe_pow", "field_prog", "fold_mixed",
-                  "fold_add_tree", "fold_horner"))
+                 ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
+                  "fold_mixed", "fold_add_tree", "fold_horner"))
     for name, n in per_warm.items():
         report[name]["composite_launches_per_warm_proof"] = n
+    report["ntt"].update(composite_advice_ntt_s=tr.phases["advice_ntt"],
+                         composite_quotient_s=tr.phases["quotient"])
     report["field_prog"].update(
         composite_keygen_s=kg, composite_cold_proof_s=cold,
         composite_warm_proof_s=[warm, warm2], composite_phases=phases,

@@ -5,7 +5,7 @@ Points are (..., 3, 8) int32 tensors: coordinates X, Y, Z along axis -2.
 Identity = Z == 0 (X = Y = Montgomery 1 by convention).  The formulas and
 lane rules are those of the Pallas point kernels (halo2tpu/ops/pallas_ec.py)
 — identity operands, inverses and equal points (doubling) are all handled —
-so these functions, built on the plain field multiply, are the plain
+so these functions, built on the plain field operations, are the plain
 reference of the CUDA point kernels in ops/cuda_ec.py and agree with them
 coordinate for coordinate.
 """
@@ -14,8 +14,10 @@ from __future__ import annotations
 import torch
 
 from ..fields.bn254 import Q, fq_inv
-from ..fields.jfield import FQ, add, is_zero, eq, sub, device_of
-from ..ops.cuda_field import mont_mul_plain
+from ..fields.jfield import FQ, is_zero, eq, device_of
+# the plain field operations: these formulas are the point kernels' reference
+from ..ops.cuda_field import add_plain as add, mont_mul_plain
+from ..ops.cuda_field import sub_plain as sub
 
 
 def affine_to_device(points, device="cuda") -> torch.Tensor:

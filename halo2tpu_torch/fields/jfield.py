@@ -6,11 +6,9 @@ canonical in [0, p) and in Montgomery form with R = 2^256 — the same bytes
 as halo2tpu's (..., 16) 16-bit limbs, so raw Montgomery arrays convert
 without arithmetic (halo2tpu_torch/convert.py).
 
-mont_mul and mont_pow launch the CUDA kernels (ops/cuda_field.py) for CUDA
-tensors and run their plain torch versions for CPU tensors.  add/sub/neg
-and the scans are plain torch on either device.  CPU torch has no uint32
-add, shift or compare, so limbs are widened to int64 inside every
-function.
+mont_mul, mont_pow and add/sub/neg launch the CUDA kernels
+(ops/cuda_field.py) for CUDA tensors and run their plain torch versions for
+CPU tensors; the scans are rounds of those operations.
 """
 from __future__ import annotations
 
@@ -21,7 +19,7 @@ import torch
 
 from .bn254 import Q, R as FR_MOD
 from ..ops import cuda_field
-from ..ops.cuda_field import carry_in
+from ..ops.cuda_field import i32, u64  # noqa: F401  (the limb helpers)
 
 NLIMB = 8
 LIMB_BITS = 32
@@ -170,33 +168,6 @@ FQ = FieldSpec(Q)
 FR = FieldSpec(FR_MOD)
 
 
-# -- limb arithmetic helpers (int64 carriers) ------------------------------
-
-def u64(x: torch.Tensor) -> torch.Tensor:
-    """int32 limbs -> int64 holding the uint32 values."""
-    return x.to(torch.int64) & MASK
-
-
-def i32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 bit patterns."""
-    return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
-def _add_limbs(x, y):
-    """x + y over 32-bit limbs (int64 carriers): (limbs, carry out)."""
-    s = x + y
-    lo = s & MASK
-    c = carry_in(s > MASK, lo == MASK)
-    return (lo + c[..., :-1]) & MASK, c[..., -1]
-
-
-def _sub_limbs(x, y):
-    """x - y over 32-bit limbs: (limbs mod 2^256, borrow out)."""
-    t = x - y
-    b = carry_in(t < 0, t == 0)
-    return (t - b[..., :-1]) & MASK, b[..., -1]
-
-
 # -- field ops ---------------------------------------------------------------
 
 def mont_mul(spec: FieldSpec, a, b):
@@ -205,21 +176,17 @@ def mont_mul(spec: FieldSpec, a, b):
 
 
 def add(spec: FieldSpec, a, b):
-    s, top = _add_limbs(u64(a), u64(b))
-    d, borrow = _sub_limbs(s, spec.const("p64", s.device))
-    ge = (top == 1) | (borrow == 0)
-    return i32(torch.where(ge.unsqueeze(-1), d, s))
+    """a + b mod p, canonical (broadcasts)."""
+    return cuda_field.add(spec, a, b)
 
 
 def sub(spec: FieldSpec, a, b):
-    """a - b mod p, inputs canonical."""
-    d, borrow = _sub_limbs(u64(a), u64(b))
-    e, _ = _add_limbs(d, spec.const("p64", d.device))
-    return i32(torch.where((borrow == 1).unsqueeze(-1), e, d))
+    """a - b mod p, inputs canonical (broadcasts)."""
+    return cuda_field.sub(spec, a, b)
 
 
 def neg(spec: FieldSpec, a):
-    return sub(spec, torch.zeros_like(a), a)
+    return cuda_field.neg(spec, a)
 
 
 def is_zero(a):

@@ -1,12 +1,14 @@
-"""Montgomery multiply and power: the CUDA kernels (csrc/mont_mul.cu) and
-their plain torch versions.  Counterparts of halo2tpu/ops/pallas_field.py
-and of halo2tpu/fields/jfield.py::mont_pow.
+"""Montgomery multiply and power, and add / sub / neg mod p: the CUDA
+kernels (csrc/mont_mul.cu, csrc/field_addsub.cu) and their plain torch
+versions.  Counterparts of halo2tpu/ops/pallas_field.py and of
+halo2tpu/fields/jfield.py::mont_pow, add, sub and neg.
 
-`mont_mul` and `mont_pow` launch their kernels for CUDA tensors and take
-the plain versions only for CPU tensors.  The plain versions work on any
-device (chip_smoke.py compares them with the kernels on the card).  Beside
-its count of launches, each wrapper keeps `shapes`, a histogram of the lane
-counts it launched: (lanes,).
+`mont_mul`, `mont_pow` and `add_sub` (behind `add`, `sub` and `neg`)
+launch their kernels for CUDA tensors and take the plain versions only for
+CPU tensors.  The plain versions work on any device (chip_smoke.py compares
+them with the kernels on the card).  Beside its count of launches, each
+wrapper keeps `shapes`, a histogram of what it launched: (lanes,), and
+(lanes, "add" | "sub" | "neg") for add_sub.
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
@@ -15,11 +17,13 @@ from __future__ import annotations
 from collections import Counter
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 NLIMB = 8
+MASK = 0xFFFFFFFF
 _M16 = 0xFFFF
 
 _AUX: dict = {}
@@ -178,3 +182,124 @@ def mont_pow(spec, a, e: int):
 
 mont_pow.launches = 0
 mont_pow.shapes = Counter()
+
+
+# -- add / sub / neg ---------------------------------------------------------
+
+def u64(x: torch.Tensor) -> torch.Tensor:
+    """int32 limbs -> int64 holding the uint32 values."""
+    return x.to(torch.int64) & MASK
+
+
+def i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 bit patterns."""
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def _add_limbs(x, y):
+    """x + y over 32-bit limbs (int64 carriers): (limbs, carry out)."""
+    s = x + y
+    lo = s & MASK
+    c = carry_in(s > MASK, lo == MASK)
+    return (lo + c[..., :-1]) & MASK, c[..., -1]
+
+
+def _sub_limbs(x, y):
+    """x - y over 32-bit limbs: (limbs mod 2^256, borrow out)."""
+    t = x - y
+    b = carry_in(t < 0, t == 0)
+    return (t - b[..., :-1]) & MASK, b[..., -1]
+
+
+def add_plain(spec, a, b):
+    """a + b mod p in plain torch (CPU torch has no uint32 add, shift or
+    compare, so limbs are widened to int64): one conditional subtraction,
+    as the kernel's."""
+    s, top = _add_limbs(u64(a), u64(b))
+    d, borrow = _sub_limbs(s, spec.const("p64", s.device))
+    ge = (top == 1) | (borrow == 0)
+    return i32(torch.where(ge.unsqueeze(-1), d, s))
+
+
+def sub_plain(spec, a, b):
+    """a - b mod p in plain torch, inputs canonical."""
+    d, borrow = _sub_limbs(u64(a), u64(b))
+    e, _ = _add_limbs(d, spec.const("p64", d.device))
+    return i32(torch.where((borrow == 1).unsqueeze(-1), e, d))
+
+
+def neg_plain(spec, a):
+    return sub_plain(spec, torch.zeros_like(a), a)
+
+
+ADD, SUB, NEG = 0, 1, 2
+_OP_NAMES = ("add", "sub", "neg")
+_PLAIN = (add_plain, sub_plain, neg_plain)
+
+
+def _operand(x, shape):
+    """x broadcast to `shape` (..., 8) as the kernel reads it: (tensor,
+    div, mod), lane i of the output reading element (i // div) % mod of the
+    tensor.  That holds when the axes x does not broadcast over are one
+    block laid out contiguously; any other operand is copied out whole."""
+    if x.shape == shape and x.is_contiguous():
+        return x, 1, x.numel() // NLIMB
+    v = x.expand(shape)
+    sizes, strides = shape[:-1], v.stride()[:-1]
+    live = [d for d, n in enumerate(sizes) if n > 1 and strides[d] != 0]
+    lo, hi = (live[0], live[-1] + 1) if live else (0, 0)
+    ok, inner = v.stride(-1) == 1, NLIMB
+    for d in range(hi - 1, lo - 1, -1):
+        if sizes[d] > 1:
+            ok = ok and strides[d] == inner
+            inner *= sizes[d]
+    if not ok:
+        v, lo, hi = v.contiguous(), 0, len(sizes)
+    return v, math.prod(sizes[hi:]), math.prod(sizes[lo:hi])
+
+
+def add_sub(spec, op: int, a, b=None):
+    """Lanewise a + b (op ADD), a - b (SUB) or -a (NEG) mod p of (..., 8)
+    int32 tensors (broadcast), canonical.  CUDA tensors launch the kernel;
+    CPU tensors take add_plain / sub_plain / neg_plain."""
+    ts = (a,) if op == NEG else (a, b)
+    if all(t.device.type == "cpu" for t in ts):
+        return _PLAIN[op](spec, *ts)
+    if any(t.device != a.device for t in ts) or a.device.type != "cuda":
+        raise ValueError(f"{_OP_NAMES[op]}: operands on "
+                         f"{[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.int32 or t.shape[-1] != NLIMB for t in ts):
+        raise TypeError(f"{_OP_NAMES[op]}: operands must be int32 limb "
+                        "tensors")
+    from .._build import check, lib
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // NLIMB
+    if n == 0:
+        return out
+    av, adiv, amod = _operand(a, shape)
+    bv, bdiv, bmod = (av, adiv, amod) if op == NEG else _operand(b, shape)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    check(lib().h2_field_addsub(av.data_ptr(), adiv, amod, bv.data_ptr(),
+                                bdiv, bmod, out.data_ptr(), n, op,
+                                spec.mod_words_ptr, stream), "field_addsub")
+    add_sub.launches += 1
+    add_sub.shapes[(n, _OP_NAMES[op])] += 1
+    return out
+
+
+add_sub.launches = 0
+add_sub.shapes = Counter()
+
+
+def add(spec, a, b):
+    return add_sub(spec, ADD, a, b)
+
+
+def sub(spec, a, b):
+    """a - b mod p, inputs canonical."""
+    return add_sub(spec, SUB, a, b)
+
+
+def neg(spec, a):
+    return add_sub(spec, NEG, a)

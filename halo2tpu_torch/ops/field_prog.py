@@ -27,8 +27,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..fields import jfield
-from .cuda_field import NLIMB, mont_mul_plain
+from .cuda_field import (NLIMB, add_plain, mont_mul_plain, neg_plain,
+                         sub_plain)
 
 LOAD, CONST, ADD, SUB, NEG, MUL, SQR, HORNER, OUT = range(9)
 OP_NAMES = ("LOAD", "CONST", "ADD", "SUB", "NEG", "MUL", "SQR", "HORNER",
@@ -72,18 +72,18 @@ def field_prog_plain(spec, prog: Program, leaves, consts, n: int):
         elif op == CONST:
             slots[d] = consts[a].expand(n, NLIMB)
         elif op == ADD:
-            slots[d] = jfield.add(spec, slots[a], slots[b])
+            slots[d] = add_plain(spec, slots[a], slots[b])
         elif op == SUB:
-            slots[d] = jfield.sub(spec, slots[a], slots[b])
+            slots[d] = sub_plain(spec, slots[a], slots[b])
         elif op == NEG:
-            slots[d] = jfield.neg(spec, slots[a])
+            slots[d] = neg_plain(spec, slots[a])
         elif op == MUL:
             slots[d] = mont_mul_plain(spec, slots[a], slots[b])
         elif op == SQR:
             slots[d] = mont_mul_plain(spec, slots[a], slots[a])
         elif op == HORNER:
-            slots[d] = jfield.add(spec, mont_mul_plain(spec, slots[d],
-                                                       consts[b]), slots[a])
+            slots[d] = add_plain(spec, mont_mul_plain(spec, slots[d],
+                                                      consts[b]), slots[a])
         else:
             out = slots[a]
     return out.expand(n, NLIMB).contiguous()

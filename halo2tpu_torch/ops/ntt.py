@@ -1,17 +1,32 @@
 """Radix-2 NTT over Fr on torch tensors.  Port of halo2tpu/ops/ntt.py.
 
-Stockham autosort DIF over axis 0 of (n, ..., 8) Montgomery tensors
-(interior axes are batch columns): log2(n) stages of slice + butterfly +
-concatenate, with the twiddles subsampled from one flat half-size table.
-Plain torch; the butterflies' multiplies go through jfield.mont_mul and so
-reach the mont_mul kernel on CUDA tensors.
+`ntt` and `intt` transform axis 0 of an (n, 8) or (n, C, 8) Montgomery
+stack (the C columns together) into natural order, with an optional
+per-row scale fused in: `pre` multiplies the input of the forward
+transform (a coset NTT), `post` the output of the inverse after its 1 / n.
+A CUDA tensor takes the kernel (csrc/ntt.cu, `ntt_kernel`): one pass for n
+<= 2^NTT_MAX_LOG_L, else two (a four-step split, `pass_shapes`).  A CPU
+tensor takes the plain versions: the Stockham loop `_ntt_run` (log2 n
+stages of slice + butterfly + concatenate, the twiddles subsampled from one
+flat half-size table) composed with jfield.mont_mul for the scales.
+
+`ntt_kernel` counts its launches (one a pass) and keeps `shapes`, a
+histogram of (n, C, passes) a transform; `_ntt_run.cuda_calls` counts the
+plain loop's runs on CUDA tensors.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from ..fields.bn254 import R, inv_mod
-from ..fields.jfield import FR, add, device_of, ints_to_limbs, mont_mul, sub
+from ..fields.jfield import (FR, NLIMB, add, device_of, ints_to_limbs,
+                             mont_mul, sub)
+
+# a kernel pass transforms lines of at most 2^NTT_MAX_LOG_L points in
+# shared memory
+NTT_MAX_LOG_L = 10
 
 
 class NTTPlan:
@@ -44,11 +59,17 @@ def get_plan(n: int, omega: int, device="cuda") -> NTTPlan:
     return _PLANS[key]
 
 
+def _inverse_plan(plan_fwd: NTTPlan) -> NTTPlan:
+    return get_plan(plan_fwd.n, inv_mod(plan_fwd.omega, R), plan_fwd.device)
+
+
 def _ntt_run(plan: NTTPlan, a):
     """Invariant: x flat-indexed as [(j, c)] = flat[j*m + c] holds the j-th
     input of a size-2l sub-DFT for output group c.  A stage computes
     E = x0 + x1 (even outputs) and O = (x0 - x1) * w_{2l}^j (odd outputs)
     and appends the branch bit as the next output-index bit."""
+    if a.is_cuda:
+        _ntt_run.cuda_calls += 1
     n = plan.n
     batch = a.shape[1:-1]
     ones = (1,) * len(batch)
@@ -70,13 +91,107 @@ def _ntt_run(plan: NTTPlan, a):
     return x
 
 
-def ntt(plan: NTTPlan, a):
-    """Forward in-order NTT over axis 0: out[i] = sum_j a[j] omega^(ij)."""
+_ntt_run.cuda_calls = 0
+
+
+def _rows(v, a):
+    """An (n, 8) per-row vector shaped to broadcast over a's columns."""
+    return v.reshape((v.shape[0],) + (1,) * (a.dim() - 2) + (NLIMB,))
+
+
+def ntt_plain(plan: NTTPlan, a, pre=None):
+    """The forward transform of ntt() in plain torch: the pre-scale, then
+    the Stockham loop."""
+    if pre is not None:
+        a = mont_mul(FR, a, _rows(pre, a))
     return _ntt_run(plan, a)
 
 
-def intt(plan_fwd: NTTPlan, a):
-    """Inverse NTT using the inverse-omega plan + 1/n scaling."""
-    inv_plan = get_plan(plan_fwd.n, inv_mod(plan_fwd.omega, R),
-                        plan_fwd.device)
-    return mont_mul(FR, _ntt_run(inv_plan, a), inv_plan.n_inv)
+def intt_plain(plan_fwd: NTTPlan, a, post=None):
+    """The inverse of intt() in plain torch: the Stockham loop over the
+    inverse-omega plan, 1 / n, then the post-scale."""
+    inv_plan = _inverse_plan(plan_fwd)
+    out = mont_mul(FR, _ntt_run(inv_plan, a), inv_plan.n_inv)
+    if post is not None:
+        out = mont_mul(FR, out, _rows(post, out))
+    return out
+
+
+def pass_shapes(logn: int, C: int) -> list:
+    """The kernel's passes over an (2^logn, C) stack, in order: (log2 L,
+    lines W, output group S, twiddle) each (csrc/ntt.cu::NttPass).  Up to
+    2^NTT_MAX_LOG_L points, one pass over the C columns.  Beyond, with n1 =
+    2^ceil(logn / 2) and n2 = n / n1: n2 C lines of n1 points (a line per
+    row class j mod n2 and column), then the twiddles omega^(j2 k1); then
+    n1 C lines of n2 points, written in natural order."""
+    if logn <= NTT_MAX_LOG_L:
+        return [(logn, C, C, False)]
+    l1 = (logn + 1) // 2
+    l2 = logn - l1
+    return [(l1, C << l2, C, True), (l2, C << l1, C << l1, False)]
+
+
+def ntt_kernel(plan: NTTPlan, a, pre=None, post=None, scale=None):
+    """One transform of a CUDA (n, ..., 8) int32 stack by the kernel, one
+    launch a pass: pre multiplies row j of the input, scale (8,) and then
+    post row k of the output (pre and post are (n, 8))."""
+    from .._build import check, lib
+    if a.dtype != torch.int32 or a.shape[0] != plan.n or a.dim() < 2 or (
+            a.shape[-1] != NLIMB):
+        raise ValueError(f"ntt: expected an ({plan.n}, ..., 8) int32 stack, "
+                         f"got {tuple(a.shape)} {a.dtype}")
+    vecs = [v for v in (pre, post, scale) if v is not None]
+    if any(t.device != a.device for t in [plan.tw_flat, *vecs]) or (
+            a.device.type != "cuda"):
+        raise ValueError(f"ntt: stack on {a.device}, plan on "
+                         f"{plan.device}, scales on "
+                         f"{[str(v.device) for v in vecs]}")
+    for v, shape in ((pre, (plan.n, NLIMB)), (post, (plan.n, NLIMB)),
+                     (scale, (NLIMB,))):
+        if v is not None and (tuple(v.shape) != shape
+                              or v.dtype != torch.int32):
+            raise ValueError(f"ntt: a scale of shape {tuple(v.shape)} "
+                             f"{v.dtype}, expected {shape} int32")
+    a = a.contiguous()
+    pre, post, scale = (None if v is None else v.contiguous()
+                        for v in (pre, post, scale))
+    C = a.numel() // (plan.n * NLIMB)
+    out = torch.empty_like(a)
+    passes = pass_shapes(plan.logn, C)
+    src = a
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    for i, (log_l, lines, group, twiddle) in enumerate(passes):
+        last = i == len(passes) - 1
+        dst = out if last else torch.empty_like(a)
+        check(lib().h2_ntt_pass(
+            src.data_ptr(), dst.data_ptr(), plan.tw_flat.data_ptr(),
+            pre.data_ptr() if pre is not None and i == 0 else None,
+            post.data_ptr() if post is not None and last else None,
+            scale.data_ptr() if scale is not None and last else None,
+            lines, C, group, int(twiddle), plan.logn, log_l,
+            FR.mod_words_ptr, stream), "ntt")
+        ntt_kernel.launches += 1
+        src = dst
+    ntt_kernel.shapes[(plan.n, C, len(passes))] += 1
+    return out
+
+
+ntt_kernel.launches = 0
+ntt_kernel.shapes = Counter()
+
+
+def ntt(plan: NTTPlan, a, pre=None):
+    """Forward in-order NTT over axis 0: out[i] = sum_j pre[j] a[j]
+    omega^(ij), pre an optional (n, 8) per-row scale (a coset)."""
+    if a.device.type == "cpu":
+        return ntt_plain(plan, a, pre)
+    return ntt_kernel(plan, a, pre=pre)
+
+
+def intt(plan_fwd: NTTPlan, a, post=None):
+    """Inverse NTT using the inverse-omega plan + 1/n scaling, then an
+    optional (n, 8) per-row scale post."""
+    if a.device.type == "cpu":
+        return intt_plain(plan_fwd, a, post)
+    inv_plan = _inverse_plan(plan_fwd)
+    return ntt_kernel(inv_plan, a, post=post, scale=inv_plan.n_inv)

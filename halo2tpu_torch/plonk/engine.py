@@ -4,9 +4,11 @@ Port of halo2tpu/plonk/engine.py::JaxEngine (same method set, same values).
 Vectors are (n, 8) int32 Montgomery limb tensors on the engine's device.
 Every method keeps data on the device; the only device -> host reads in a
 proof are commitment points, evaluations, one row per grand-product chunk
-and the lookup failure flags.  Field multiplies go through jfield.mont_mul
-(the mont_mul kernel on CUDA); commitments go through the windowed MSM
-(the fold_mixed / fold_add_any / fold_dbl_any kernels on CUDA).
+and the lookup failure flags.  Field operations go through jfield (the
+mont_mul and add/sub kernels on CUDA), transforms through ops/ntt.py (the
+NTT kernel, coset and inverse scales fused in); commitments go through the
+windowed MSM (the fold_mixed / fold_add_any / fold_dbl_any kernels on
+CUDA).
 """
 from __future__ import annotations
 
@@ -238,11 +240,13 @@ class TorchEngine:
         return v
 
     def coeff_to_part_stack(self, vecs, q):
+        """Part q's values of coefficient vectors: the coset powers fused
+        into the transform as its pre-scale."""
         if not vecs:
             return []
-        pows = self._part_pows(polyops.part_shift(self.d, q))[:, None]
+        pows = self._part_pows(polyops.part_shift(self.d, q))
         return self._stack_transform(
-            vecs, lambda s: tntt.ntt(self._plan, jfield.mont_mul(FR, s, pows)))
+            vecs, lambda s: tntt.ntt(self._plan, s, pre=pows))
 
     def parts_to_h_chunks(self, parts, qpd):
         d = self.d
@@ -252,9 +256,8 @@ class TorchEngine:
         step_inv = inv_mod(step, R)
         us = []
         for q, part in enumerate(parts):
-            u = self.lagrange_to_coeff(part)
             ci = inv_mod(polyops.part_shift(d, q), R)
-            us.append(jfield.mont_mul(FR, u, self._part_pows(ci)))
+            us.append(tntt.intt(self._plan, part, post=self._part_pows(ci)))
         U = torch.stack(us)                                  # (step, n, 8)
         chunks = []
         for s in range(qpd):

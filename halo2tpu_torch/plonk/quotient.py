@@ -387,16 +387,23 @@ def fold_quotient(eng, cs, d, st, srcs, ch):
 
 
 def _fold_part(eng, st, srcs, ch, q, prog):
-    """Part q's hv / Z_H: the part's vectors (NTTs), then one field_prog
+    """Part q's hv / Z_H: the part's vectors (one coeff_to_part_stack call
+    over every advice, instance, z and lookup poly), then one field_prog
     launch.  A proof only re-encodes the constants (one _encode call)."""
+    groups = [srcs["advice_polys"], srcs["instance_polys"], srcs["z_polys"],
+              *(list(polys) for polys in srcs["lookup_polys"])]
+    vals = eng.coeff_to_part_stack([p for grp in groups for p in grp], q)
+    split, i = [], 0
+    for grp in groups:
+        split.append(vals[i:i + len(grp)])
+        i += len(grp)
     tables = {
-        "advice": eng.coeff_to_part_stack(srcs["advice_polys"], q),
+        "advice": split[0],
         "fixed": st.fixed_parts(eng, q),
         "sigma": st.sigma_parts(eng, q),
-        "instance": eng.coeff_to_part_stack(srcs["instance_polys"], q),
-        "z": eng.coeff_to_part_stack(srcs["z_polys"], q),
-        "lookup": [eng.coeff_to_part_stack(list(polys), q)
-                   for polys in srcs["lookup_polys"]],
+        "instance": split[1],
+        "z": split[2],
+        "lookup": split[3:],
     }
     named = dict(zip(("l0", "l_last", "l_active"), st.part_l[q]),
                  wq=st.part_wq[q])

@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Time and profile warm RSA-SHA256 k=15 proofs of a halo2tpu_torch tree on
-one NVIDIA GPU.
+"""Time and profile warm k=15 proofs of a halo2tpu_torch tree on one
+NVIDIA GPU.
 
-    python3 profile_proof.py [--tree DIR]
+    python3 profile_proof.py [--tree DIR] [--circuit rsa|composite]
 
 Imports halo2tpu_torch from DIR (default: this file's directory), so that
 two trees (a commit and its parent, unpacked with `git archive`) can be
 compared in one run on one card.  Proves chip_smoke.rsa_circuit() (1024-
-byte message, pinned key): setup(15), keygen, a cold proof, WARM warm
-proofs with the prover's phase times, then one more warm proof under
-torch.profiler.  Prints one JSON line: the card's name and power limit,
-the warm proof and quotient phase seconds of each warm proof, the launches
-of each kernel wrapper the tree counts (per warm proof) with mont_mul's
-lane histogram, and from the profiled proof the CUDA kernels the card ran
-(the tree's own and torch's), the device busy share, and the sha256 of
-the proof bytes (seed 4; the proof must verify).  Without CUDA it exits
-non-zero.
+byte message, pinned key; seed 4) or chip_smoke.composite_circuit() (the
+composite Aadhaar circuit over the golden QR; seed 8): setup(15), keygen,
+a cold proof, WARM warm proofs with the prover's phase times, then one
+more warm proof under torch.profiler.  Prints one JSON line: the card's
+name and power limit, the warm proof seconds and every phase's seconds of
+each warm proof, the launches of each kernel wrapper the tree counts (per
+warm proof) with mont_mul's lane histogram, and from the profiled proof
+the CUDA kernels the card ran (the tree's own and torch's), the device
+busy share, and the sha256 of the proof bytes (the proof must verify).
+Without CUDA it exits non-zero.
 
 `profile_run` (also used by chip_smoke.py) profiles any call.
 """
@@ -95,8 +96,10 @@ def _wrappers() -> dict:
     """The kernel wrappers of the imported tree that count launches."""
     import importlib
     out = {}
-    for mod, names in (("ops.cuda_field", ("mont_mul", "mont_pow")),
+    for mod, names in (("ops.cuda_field", ("mont_mul", "mont_pow",
+                                           "add_sub")),
                        ("ops.field_prog", ("field_prog",)),
+                       ("ops.ntt", ("ntt_kernel",)),
                        ("ops.cuda_ec", ("fold_mixed", "fold_add",
                                         "fold_add_any", "fold_add_tree",
                                         "fold_horner", "fold_dbl_any"))):
@@ -114,6 +117,8 @@ def _wrappers() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--circuit", choices=("rsa", "composite"),
+                    default="rsa")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -138,8 +143,12 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     workdir = os.path.join(tree, ".cache", "profile_proof")
     os.environ["HALO2TPU_CACHE"] = workdir    # no on-disk MSM table
-    c = chip_smoke.rsa_circuit()
-    out = {"tree": tree, "nvidia_smi": smi}
+    if args.circuit == "rsa":
+        c, seed = chip_smoke.rsa_circuit(), 4
+    else:
+        c, seed = chip_smoke.composite_circuit(), 8
+    inst = c.instances()
+    out = {"tree": tree, "circuit": args.circuit, "nvidia_smi": smi}
     try:
         t0 = time.perf_counter()
         srs = setup(15)
@@ -147,30 +156,30 @@ def main() -> int:
         out["setup_keygen_s"] = time.perf_counter() - t0
         eng = TorchEngine(vk.domain, srs, "cuda")
         t0 = time.perf_counter()
-        create_proof(pk, srs, c, c.instances(), rng_seed=3, engine=eng)
+        create_proof(pk, srs, c, inst, rng_seed=3, engine=eng)
         out["cold_proof_s"] = time.perf_counter() - t0
         wrappers = _wrappers()
-        warm, quotient = [], []
+        warm, phases = [], []
         for _ in range(WARM):
             tr = Tracer("warm")
             for w in wrappers.values():
                 w.launches = 0
                 w.shapes.clear()
             t0 = time.perf_counter()
-            create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng,
+            create_proof(pk, srs, c, inst, rng_seed=seed, engine=eng,
                          tracer=tr)
             warm.append(time.perf_counter() - t0)
-            quotient.append(tr.phases["quotient"])
-        out["warm_proof_s"], out["quotient_s"] = warm, quotient
+            phases.append(dict(tr.phases))
+        out["warm_proof_s"], out["phases_s"] = warm, phases
         out["launches_per_warm_proof"] = {n: w.launches
                                           for n, w in wrappers.items()}
         out["mont_mul_lanes"] = {str(k[0]): v for k, v in sorted(
             wrappers["mont_mul"].shapes.items())}
         proof, prof = profile_run(
-            lambda: create_proof(pk, srs, c, c.instances(), rng_seed=4,
+            lambda: create_proof(pk, srs, c, inst, rng_seed=seed,
                                  engine=eng), workdir)
         out["profiled_warm_proof"] = prof
-        if not verify_proof(vk, srs, c.instances(), proof):
+        if not verify_proof(vk, srs, inst, proof):
             raise AssertionError("profile_proof: the proof does not verify")
         out["proof_sha256"] = hashlib.sha256(proof).hexdigest()
     finally:

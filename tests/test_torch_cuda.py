@@ -14,7 +14,9 @@ from halo2tpu_torch.curves.jpoint import affine_to_device
 from halo2tpu_torch.fields.bn254 import G1_GEN, Q, R
 from halo2tpu_torch.fields.jfield import (FQ, FR, ints_to_limbs, limbs_to_ints,
                                           neg)
+from halo2tpu_torch.fields.bn254 import fr_root_of_unity
 from halo2tpu_torch.ops import cuda_ec, cuda_field, field_prog
+from halo2tpu_torch.ops import ntt as tntt
 from halo2tpu_torch.ops.msm import TABLE_W, msm, precompute_window_table
 from halo2tpu_torch.plonk import expression as ex
 from halo2tpu_torch.plonk import quotient
@@ -361,3 +363,67 @@ def test_kernels_reject_mixed_devices(dev):
     a = FR.encode([1, 2, 3], dev)
     with pytest.raises(ValueError):
         cuda_field.mont_mul(FR, a, a.cpu())
+    with pytest.raises(ValueError):
+        cuda_field.add(FR, a, a.cpu())
+
+
+def _rand_stack(rng, shape, p=R):
+    vals = [int.from_bytes(rng.bytes(32), "big") % p
+            for _ in range(int(np.prod(shape)))]
+    return torch.from_numpy(ints_to_limbs(vals).copy()).reshape(
+        tuple(shape) + (8,))
+
+
+@pytest.mark.parametrize("k,C", [(k, C) for k in (4, 6, 8, 10)
+                                 for C in (1, 3, 8, None)]
+                         + [(15, 64), (15, 60), (15, 1), (11, 3), (1, 2)])
+def test_ntt_kernel_matches_plain(dev, k, C):
+    """Forward, inverse, coset (pre-scale) and h-chunk (post-scale) entries
+    bitwise equal to the plain versions on the same inputs (C None: the
+    batch-less (n, 8) shape); the plain loop never runs for them."""
+    n = 1 << k
+    rng = np.random.default_rng(k * 100 + (C or 0))
+    plan = tntt.get_plan(n, fr_root_of_unity(k), dev)
+    a = _rand_stack(rng, (n,) if C is None else (n, C)).to(dev)
+    pre = _rand_stack(rng, (n,)).to(dev)
+    post = _rand_stack(rng, (n,)).to(dev)
+    passes = len(tntt.pass_shapes(k, C or 1))
+    for got_fn, want_fn in (
+            (lambda: tntt.ntt(plan, a), lambda: tntt.ntt_plain(plan, a)),
+            (lambda: tntt.intt(plan, a), lambda: tntt.intt_plain(plan, a)),
+            (lambda: tntt.ntt(plan, a, pre=pre),
+             lambda: tntt.ntt_plain(plan, a, pre=pre)),
+            (lambda: tntt.intt(plan, a, post=post),
+             lambda: tntt.intt_plain(plan, a, post=post))):
+        launches, plain = tntt.ntt_kernel.launches, tntt._ntt_run.cuda_calls
+        got = got_fn()
+        assert tntt.ntt_kernel.launches == launches + passes
+        assert tntt._ntt_run.cuda_calls == plain
+        assert torch.equal(got, want_fn())
+    # forward then inverse is the identity
+    assert torch.equal(tntt.intt(plan, tntt.ntt(plan, a)), a)
+
+
+@pytest.mark.parametrize("spec,p", [(FR, R), (FQ, Q)])
+def test_field_addsub_kernel_matches_plain(dev, spec, p):
+    """add, sub and neg at 0, 1, p - 1 and random values, same-shape and
+    broadcast operands ((n,) + (), (n, C) + (n, 1), (C,) over a leading
+    axis, a strided view), bitwise equal to the plain versions."""
+    rng = np.random.default_rng(21)
+    n, C = 4099, 5
+    a = _rand_stack(rng, (n, C), p).to(dev)
+    b = _rand_stack(rng, (n, C), p).to(dev)
+    edge = torch.from_numpy(ints_to_limbs([0, 1, p - 1]).copy()).to(dev)
+    a[:3, 0], b[:3, 0] = edge, edge.flip(0)
+    a[3:6, 0], b[3:6, 0] = edge, edge
+    cases = [(a, b), (a[:, 0], b[0, 0]), (a, b[:, :1]), (a, b[0]),
+             (a[:, 1:4], b[:, 2:5]), (b[0, 0], a)]
+    for x, y in cases:
+        for fn, plain in ((cuda_field.add, cuda_field.add_plain),
+                          (cuda_field.sub, cuda_field.sub_plain)):
+            before = cuda_field.add_sub.launches
+            got = fn(spec, x, y)
+            assert cuda_field.add_sub.launches == before + 1
+            assert torch.equal(got, plain(spec, x, y))
+        assert torch.equal(cuda_field.neg(spec, x),
+                           cuda_field.neg_plain(spec, x))

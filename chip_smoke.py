@@ -12,9 +12,17 @@ Phases, run in order, each of which raises on failure (non-zero exit):
   2. kernels each kernel against its plain torch version, bitwise, at the
              main paths' shapes (fe_pow at 1, 16 and 4,097 lanes with
              exponents 0, 1, 2 and p - 2, Fr and Fq; field_prog on the
-             RSA-SHA256 and the composite part programs at 2^15 rows, also
+             RSA-SHA256 and the composite part programs at 2^15 rows,
+             split into sub-programs as the prover compiles them, also
              against the per-op route it replaces, at most
-             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part; the NTT's
+             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part, and
+             timed beside the one-program kernel (G = 1); the weighted
+             sum program over 64 vectors against its mont_mul and
+             tree-sum chain; field_linscan at n = 1, 3, 1000 and 2^20
+             (every multiplier, direction and output), timed at a
+             div_linear of 2^15 rows, an evaluation group of 16 x 2^15,
+             the suffix and prefix sums (each against the chain it
+             replaces) and 2^20 rows; the NTT's
              forward, inverse, coset and h-chunk entries at n = 2^4-2^10
              with C = 1, 3, 8 columns and batch-less, and at n = 2^15 with
              C = 64, 60 and 1 (timed); add / sub / neg over Fr and Fq at
@@ -44,9 +52,11 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              windowed fold_mixed launch under ops/msm.py's LANE_TARGET
              lanes unless it is one row; at most ADD_LAUNCHES_PER_PROOF
              launches of the add kernel's entries and no fold_dbl_any; one
-             field_prog launch a quotient part; at most
-             MONT_MUL_ONE_LANE_PER_PROOF one-lane mont_mul launches; no
-             run of the plain NTT loop on the card), peak memory; one more
+             field_prog launch a quotient part, counted apart from the
+             weighted-sum programs; at most MONT_MUL_ONE_LANE_PER_PROOF
+             one-lane mont_mul and ADDSUB_PER_PROOF field_addsub launches;
+             no run of the plain NTT loop, the plain scan or the
+             field-program interpreter on the card), peak memory; one more
              warm proof under torch.profiler (every CUDA kernel the card
              ran and the device busy share, profile_proof.profile_run);
              the warm proof's sha256, held to RSA_PROOF_SHA256.
@@ -63,8 +73,8 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              warm proofs with phase times (same seed, same bytes), one more
              under torch.profiler, verification, a tampered nullifier seed
              rejected, launches and shapes per warm proof (one field_prog
-             launch for each of the 8 quotient parts, no run of the plain
-             NTT loop on the card), the part program's size, the part
+             launch for each of the 8 quotient parts, no run of a plain
+             loop on the card), the part program's size, the part
              cache's bytes, peak memory and the sha256, held to
              COMPOSITE_PROOF_SHA256.
 The launch counts of phases 4, 5 and 6 are each zeroed just before the
@@ -123,11 +133,16 @@ ADD_LAUNCHES_PER_MSM = 4
 # and mont_mul at one lane at most MONT_MUL_ONE_LANE_PER_PROOF times
 FIELD_PROG_OVER_CHAIN = 20
 MONT_MUL_ONE_LANE_PER_PROOF = 500
+# field_addsub launches allowed per warm RSA k=15 proof: the lanewise
+# numerators, SHPLONK's adds and the h fold (the scans and tree sums that
+# were most of them run as field_linscan and field programs)
+ADDSUB_PER_PROOF = 150
 SOURCES = {"mont_mul": "halo2tpu_torch/csrc/mont_mul.cu",
            "fe_pow": "halo2tpu_torch/csrc/mont_mul.cu",
            "field_prog": "halo2tpu_torch/csrc/field_prog.cu",
            "ntt": "halo2tpu_torch/csrc/ntt.cu",
-           "field_addsub": "halo2tpu_torch/csrc/field_addsub.cu"}
+           "field_addsub": "halo2tpu_torch/csrc/field_addsub.cu",
+           "field_linscan": "halo2tpu_torch/csrc/field_linscan.cu"}
 # the proofs' bytes at their seeds (RSA-SHA256 k=15, seed 4; the composite
 # k=15, seed 8), unchanged since the kernels that prove them were ported
 RSA_PROOF_SHA256 = ("2567c205a68a04a28dbd9df0fc0d98e9"
@@ -514,6 +529,74 @@ def per_op_part(eng, cs, n: int, leaf, ch: dict, zh_inv: int):
     return eng.scale(hv, zh_inv)
 
 
+# -- the chains of launches the scan and the weighted sum replace ------------
+# (the prover's routes before field_linscan and the sum program: one add
+# launch a scan or tree-sum round, one mont_mul launch a power-vector round)
+
+def _chain_tree_sum(arr, dim: int = 0):
+    """Sum mod r over `dim` by halving rounds of add launches."""
+    import torch
+    from halo2tpu_torch.fields import jfield as jf
+    while arr.shape[dim] > 1:
+        half = arr.shape[dim] // 2
+        head = jf.add(jf.FR, arr.narrow(dim, 0, half),
+                      arr.narrow(dim, half, half))
+        arr = head if 2 * half == arr.shape[dim] else torch.cat(
+            [head, arr.narrow(dim, 2 * half, arr.shape[dim] - 2 * half)],
+            dim)
+    return arr.select(dim, 0)
+
+
+def _chain_wsum(stacked, coefs):
+    """sum_i coefs[i] stacked[i]: one product launch and a tree sum."""
+    from halo2tpu_torch.fields import jfield as jf
+    return _chain_tree_sum(jf.mont_mul(jf.FR, stacked, coefs[:, None]))
+
+
+def _chain_scan(v, reverse: bool = False):
+    """The prefix (suffix) sum along axis 0 in Hillis-Steele rounds, one
+    add launch and a cat a round (and a flip each side for a suffix)."""
+    import torch
+    from halo2tpu_torch.fields import jfield as jf
+    x = torch.flip(v, [0]) if reverse else v
+    n, shift = x.shape[0], 1
+    while shift < n:
+        x = torch.cat([x[:shift], jf.add(jf.FR, x[shift:], x[:n - shift])])
+        shift *= 2
+    return torch.flip(x, [0]) if reverse else x
+
+
+def _chain_div_linear(vec, a: int):
+    """vec(X) / (X - a): power vectors of a and 1/a (doubling rounds of
+    mont_mul) around a suffix sum."""
+    import torch
+    from halo2tpu_torch.fields import jfield as jf
+    from halo2tpu_torch.fields.bn254 import R
+    from halo2tpu_torch.plonk.engine import _powers
+    a_e, ainv_e = jf.FR.encode([a, pow(a, -1, R)], vec.device)
+    n = vec.shape[0]
+    S = _chain_scan(jf.mont_mul(jf.FR, vec, _powers(a_e, n)), reverse=True)
+    out = jf.mont_mul(jf.FR, torch.cat([S[1:], torch.zeros_like(S[:1])]),
+                      _powers(ainv_e, n))
+    return jf.mont_mul(jf.FR, out, ainv_e)
+
+
+def _chain_eval(stacked, x: int):
+    """(P, n, 8) polys at x: a power vector, one product, a tree sum."""
+    from halo2tpu_torch.fields import jfield as jf
+    from halo2tpu_torch.plonk.engine import _powers
+    pows = _powers(jf.FR.encode([x], stacked.device)[0], stacked.shape[1])
+    return _chain_tree_sum(jf.mont_mul(jf.FR, stacked, pows), 1)
+
+
+def _configured_cs(circuit):
+    """circuit's ConstraintSystem (configure only)."""
+    from halo2tpu_torch.plonk.circuit import ConstraintSystem
+    cs = ConstraintSystem()
+    circuit.configure(cs)
+    return cs
+
+
 def _field_prog_case(circuit, g, n: int, card: "Card", dev):
     """A circuit's part program at n rows on random leaves (strided column
     views of one stack, as coeff_to_part_stack returns them) and random
@@ -521,10 +604,8 @@ def _field_prog_case(circuit, g, n: int, card: "Card", dev):
     import torch
     from halo2tpu_torch.fields.bn254 import R
     from halo2tpu_torch.fields.jfield import FR
-    from halo2tpu_torch.plonk.circuit import ConstraintSystem
     from halo2tpu_torch.plonk.quotient import const_value, part_program
-    cs = ConstraintSystem()
-    circuit.configure(cs)
+    cs = _configured_cs(circuit)
     prog = part_program(cs, n)
     m = len(prog.leaf_keys)
     stack = _rand_fe(g, n * m, dev).reshape(n, m, 8)
@@ -576,8 +657,10 @@ def phase_kernels(report: dict, card: Card) -> None:
     from halo2tpu_torch.fields.bn254 import fr_root_of_unity
     from halo2tpu_torch.ops import cuda_ec, cuda_field
     from halo2tpu_torch.ops import ntt as tntt
-    from halo2tpu_torch.ops.field_prog import field_prog, field_prog_plain
+    from halo2tpu_torch.ops.field_prog import (field_prog, field_prog_plain,
+                                               groups_for, sum_program)
     from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
+    from halo2tpu_torch.plonk.quotient import const_value, part_program
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(7)
@@ -685,9 +768,11 @@ def phase_kernels(report: dict, card: Card) -> None:
                     cuda_field.mont_pow(spec, x, e), 20)
 
     # field_prog: the RSA-SHA256 and the composite part programs at n =
-    # 2^15 rows (a k=15 proof's part), bitwise against the plain
-    # interpreter and against the per-op route it replaces, timed against
-    # that route and its bound
+    # 2^15 rows (a k=15 proof's part), split into groups_for(n) sub-programs
+    # as the prover compiles them, bitwise against the plain interpreter
+    # and against the per-op route it replaces, timed against that route,
+    # the one-program kernel (G = 1, one warp a row as before the split)
+    # and the bound; the loads the program makes beside the bytes bound
     n_q = 1 << 15
     res = _build.resources.get("field_prog_kernel", {})
     op_eng = _op_engine(dev)
@@ -696,24 +781,53 @@ def phase_kernels(report: dict, card: Card) -> None:
         prog, by_key, consts, ch, zh_inv, cs, bound = _field_prog_case(
             circuit, g, n_q, card, dev)
         leaves = [by_key[k] for k in prog.leaf_keys]
-        smem = prog.slots * 8 * 128 * 4
-        blocks = _occupancy(res.get("registers", 255), smem, 128)
-        check("field_prog", f"field_prog {case} part",
+        G = prog.groups
+        smem = G * prog.slots * 8 * 32 * 4
+        blocks = _occupancy(res.get("registers", 255), smem, 32 * G)
+        grid = -(-n_q // 32)
+        name = f"field_prog {case} part"
+        check("field_prog", name,
               lambda p=prog, x=leaves, c=consts: field_prog(
                   jfield.FR, p, x, c, n_q),
               lambda p=prog, x=leaves, c=consts: field_prog_plain(
                   jfield.FR, p, x, c, n_q),
               10, bound, plain_runs=1, rows=n_q,
               instructions=int(prog.code.shape[0]), slots=prog.slots,
-              leaves=len(leaves), ops=prog.op_counts(),
-              shared_bytes_per_block=smem, blocks_per_sm=blocks,
-              resident_blocks=min(-(-n_q // 128), blocks * card.sms),
-              grid_blocks=-(-n_q // 128),
-              chain_case=f"field_prog {case} part chain")
-        _chain_case(cases, f"field_prog {case} part chain",
+              groups=G, leaves=len(leaves), ops=prog.op_counts(),
+              load_bytes=prog.op_counts()["LOAD"] * n_q * 32,
+              threads_per_block=32 * G, shared_bytes_per_block=smem,
+              blocks_per_sm=blocks, grid_blocks=grid,
+              warps_per_sm=min(grid, blocks * card.sms) * G / card.sms,
+              chain_case=f"{name} chain", alt_case=f"{name} one program",
+              alt_key="one_program")
+        _chain_case(cases, f"{name} chain",
                     lambda c=cs, k=by_key, h=ch, z=zh_inv: per_op_part(
                         op_eng, c, n_q, k.__getitem__, h, z),
                     field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
+        one = part_program(cs, n_q, groups=1)
+        one_consts = jfield.FR.encode([const_value(k, ch, zh_inv)
+                                       for k in one.const_keys], dev)
+        one_leaves = [by_key[k] for k in one.leaf_keys]
+        _chain_case(cases, f"{name} one program",
+                    lambda p=one, x=one_leaves, c=one_consts: field_prog(
+                        jfield.FR, p, x, c, n_q),
+                    field_prog(jfield.FR, prog, leaves, consts, n_q), 10)
+
+    # the engine's weighted sum as a field program (sum_program) over 64
+    # vectors of 2^15 rows, against the chain it replaces (one mont_mul
+    # launch, then halving rounds of add launches)
+    vecs = [_rand_fe(g, n_q, dev) for _ in range(64)]
+    coefs = _rand_fe(g, 64, dev)
+    sprog = sum_program(64, groups_for(n_q))
+    check("field_prog", "field_prog sum 64 x 32768",
+          lambda: field_prog(jfield.FR, sprog, vecs, coefs, n_q),
+          lambda: field_prog_plain(jfield.FR, sprog, vecs, coefs, n_q), 50,
+          card.bound(65 * n_q * 32 + 64 * 32, 64 * n_q * MUL32_PER_MONT),
+          rows=n_q, groups=sprog.groups, terms=64,
+          chain_case="field_prog sum 64 x 32768 chain")
+    _chain_case(cases, "field_prog sum 64 x 32768 chain",
+                lambda: _chain_wsum(torch.stack(vecs), coefs),
+                field_prog(jfield.FR, sprog, vecs, coefs, n_q), 50)
 
     # the NTT (ops/ntt.py, csrc/ntt.cu): forward, inverse, coset (the
     # quotient's pre-scale) and h-chunk (inverse and post-scale) entries,
@@ -793,6 +907,71 @@ def phase_kernels(report: dict, card: Card) -> None:
               lambda f=plain, a=args: f(jfield.FR, *a), iters,
               card.bound(sum(a.numel() for a in args) * 4 + lanes * 32, 0),
               lanes=lanes, op=op, broadcast=bcast)
+
+    # the linear scan (cuda_field.linscan, csrc/field_linscan.cu), Fr:
+    # bitwise against the plain scan at the edge sizes 1, 3, 1000 and 2^20,
+    # forward and reverse, a = 1 and a random a, every x, the exclusive x
+    # and the total; timed at the proof's shapes (a div_linear of 2^15
+    # rows, the main path's, first; an evaluation group of 16 polys of
+    # 2^15 rows; the suffix and prefix sums at 2^15; a total and a full
+    # scan at 2^20), against its bound and the chain of launches each
+    # replaces (the engine's routes before this kernel)
+    a_r = int(torch.randint(1, 2**62, (1,), generator=g)) ** 4 % R
+    for n in (1, 3, 1000, 1 << 20):
+        v = _rand_fe(g, n, dev)
+        for a in (1, a_r):
+            for reverse in (False, True):
+                for exclusive, totals in ((False, False), (True, False),
+                                          (False, True)):
+                    err = _max_abs_err(
+                        cuda_field.linscan(jfield.FR, v, a, reverse,
+                                           exclusive, totals),
+                        cuda_field.linscan_plain(jfield.FR, v, a, reverse,
+                                                 exclusive, totals))
+                    if err:
+                        raise AssertionError(
+                            f"field_linscan n={n} a={a} reverse={reverse} "
+                            f"exclusive={exclusive} totals={totals}: kernel "
+                            f"!= plain ({err})")
+    log("kernels: field_linscan bitwise equal to its plain version at n = "
+        "1, 3, 1000, 2^20 (2 multipliers, 2 directions, 3 outputs)")
+    v = _rand_fe(g, n_q, dev)
+    polys = _rand_fe(g, 16 * n_q, dev).reshape(16, n_q, 8)
+    big = _rand_fe(g, 1 << 20, dev)
+    scan_cases = (
+        ("div_linear L32768", v, a_r, True, True, False,
+         lambda: _chain_div_linear(v, a_r)),
+        ("eval 16 x 32768", polys, a_r, True, False, True,
+         lambda: _chain_eval(polys, a_r)),
+        ("suffix sum L32768", v, 1, True, False, False,
+         lambda: _chain_scan(v, reverse=True)),
+        ("prefix sum L32768", v, 1, False, False, False,
+         lambda: _chain_scan(v)),
+        ("total L1048576", big, a_r, False, False, True, None),
+        ("full L1048576", big, a_r, False, False, False, None))
+    for label, x, a, reverse, exclusive, totals, chain in scan_cases:
+        elems = x.numel() // 8
+        cols = x.shape[0] if x.dim() == 3 else 1
+        out_bytes = cols * 32 if totals else elems * 32
+        name = f"field_linscan {label}"
+        extra = {"chain_case": f"{name} chain"} if chain else {}
+        run, nb, run2 = cuda_field.scan_shapes(elems // cols, a == 1)
+        check("field_linscan", name,
+              lambda x=x, a=a, r=reverse, e=exclusive, t=totals:
+                  cuda_field.linscan(jfield.FR, x, a, r, e, t),
+              lambda x=x, a=a, r=reverse, e=exclusive, t=totals:
+                  cuda_field.linscan_plain(jfield.FR, x, a, r, e, t),
+              200, card.bound(elems * 32 + out_bytes,
+                              0 if a == 1 else elems * MUL32_PER_MONT),
+              plain_runs=1, rows=elems // cols, columns=cols,
+              one=a == 1, reverse=reverse, exclusive=exclusive,
+              totals=totals, run=run, blocks_per_column=nb, carry_run=run2,
+              launches_per_call=1 if nb == 1 else 2 if totals else 3,
+              **extra)
+        if chain:
+            _chain_case(cases, f"{name} chain", chain,
+                        cuda_field.linscan(jfield.FR, x, a, reverse,
+                                           exclusive, totals), 20)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -976,6 +1155,7 @@ def phase_kernels(report: dict, card: Card) -> None:
                 "field_prog": "halo2tpu/plonk/quotient.py:258",
                 "ntt": "halo2tpu/ops/ntt.py:69",
                 "field_addsub": "halo2tpu/fields/jfield.py:283",
+                "field_linscan": "halo2tpu/fields/jfield.py:400",
                 "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
                 "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
                 "fold_mixed_tiled_rows": "halo2tpu/ops/pallas_ec.py:291",
@@ -1002,11 +1182,12 @@ def phase_kernels(report: dict, card: Card) -> None:
                     raise AssertionError(f"{row['case']}: slower than the "
                                          "chain of launches it replaces")
             if "alt_case" in row:
+                key = row.pop("alt_key", "one_launch")
                 alt = times[row.pop("alt_case")]
-                row.update(one_launch_ms=alt["ms"],
-                           one_launch_ms_min=alt["ms_min"],
-                           one_launch_ms_max=alt["ms_max"])
-                log(f"kernel {row['case']}: in one tree launch "
+                row.update({f"{key}_ms": alt["ms"],
+                            f"{key}_ms_min": alt["ms_min"],
+                            f"{key}_ms_max": alt["ms_max"]})
+                log(f"kernel {row['case']}: {key.replace('_', ' ')} "
                     f"{alt['ms']:.4f} ms ({alt['ms_min']:.4f}-"
                     f"{alt['ms_max']:.4f})")
         main = rows[0]                  # the main path's shape comes first
@@ -1024,11 +1205,15 @@ def phase_kernels(report: dict, card: Card) -> None:
         raise AssertionError(f"field_prog: {fp['ms']:.4f} ms, more than "
                              f"1/{FIELD_PROG_OVER_CHAIN} of the per-op route "
                              f"({fp['cases'][0]['chain_ms']:.4f} ms)")
-    log(f"kernel field_prog: {fp['cases'][0]['instructions']} instructions, "
-        f"{fp['cases'][0]['slots']} slots, {fp['cases'][0]['ops']}; "
-        f"{fp['cases'][0]['shared_bytes_per_block']} bytes of shared memory "
-        f"a block of 128, {fp['cases'][0]['blocks_per_sm']} blocks an SM fit, "
-        f"{fp['cases'][0]['grid_blocks']} blocks in the grid")
+    for row in fp["cases"][:2]:
+        log(f"kernel {row['case']}: {row['instructions']} instructions in "
+            f"{row['groups']} sub-programs, {row['slots']} slots, "
+            f"{row['ops']}; {row['shared_bytes_per_block']} bytes of shared "
+            f"memory a block of {row['threads_per_block']} threads, "
+            f"{row['blocks_per_sm']} blocks an SM fit, {row['grid_blocks']} "
+            f"blocks in the grid, {row['warps_per_sm']:.2f} warps an SM; "
+            f"loads {row['load_bytes']} bytes against the bound's "
+            f"{row['bound_bytes']}")
     del table
     torch.cuda.empty_cache()
 
@@ -1043,6 +1228,7 @@ def _wrappers() -> dict:
             "field_prog": field_prog,
             "ntt": ntt.ntt_kernel,
             "field_addsub": cuda_field.add_sub,
+            "field_linscan": cuda_field.linscan,
             "fold_mixed": cuda_ec.fold_mixed,
             "fold_mixed_tiled": cuda_ec.fold_mixed_tiled,
             "fold_mixed_tiled_rows": cuda_ec.fold_mixed_tiled_rows,
@@ -1053,21 +1239,34 @@ def _wrappers() -> dict:
             "fold_dbl_any": cuda_ec.fold_dbl_any}
 
 
+def _plain_loops() -> dict:
+    """The plain loops a kernel replaced, each counting its runs on CUDA
+    tensors: the NTT's Stockham loop, the scan's add rounds (the
+    prefix/suffix sums, div_linear and evaluations before field_linscan)
+    and the field-program interpreter (the weighted sums' tree-sum rounds
+    before the sum program)."""
+    from halo2tpu_torch.ops import cuda_field, field_prog, ntt
+    return {"ntt._ntt_run": ntt._ntt_run,
+            "cuda_field.linscan_plain": cuda_field.linscan_plain,
+            "field_prog.field_prog_plain": field_prog.field_prog_plain}
+
+
 def _zero_counts() -> None:
-    from halo2tpu_torch.ops import ntt
     for w in _wrappers().values():
         w.launches = 0
         w.shapes.clear()
-    ntt._ntt_run.cuda_calls = 0
+    for f in _plain_loops().values():
+        f.cuda_calls = 0
 
 
-def _check_no_plain_ntt(path: str) -> None:
-    """No transform of the path ran the plain Stockham loop on the card."""
-    from halo2tpu_torch.ops import ntt
-    if ntt._ntt_run.cuda_calls:
-        raise AssertionError(f"{path}: the plain NTT loop ran "
-                             f"{ntt._ntt_run.cuda_calls} times on CUDA "
-                             "tensors")
+def _check_no_plain_loops(path: str) -> None:
+    """No transform, scan or weighted sum of the path ran its plain loop
+    on the card."""
+    ran = {k: f.cuda_calls for k, f in _plain_loops().items()
+           if f.cuda_calls}
+    if ran:
+        raise AssertionError(f"{path}: plain loops ran on CUDA tensors: "
+                             f"{ran}")
 
 
 def _counts() -> dict:
@@ -1080,8 +1279,9 @@ def _shapes() -> dict:
 
 
 SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
-              "field_prog": "rows x instructions",
+              "field_prog": "program x rows x instructions x groups",
               "ntt": "n x C x passes", "field_addsub": "lanes x op",
+              "field_linscan": "n x columns x output x multiplier x launches",
               "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
               "fold_mixed_tiled_rows": "lanes x C x rows",
@@ -1094,6 +1294,7 @@ KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "field_prog": "field_prog_kernel",
              "ntt": "ntt_pass_kernel",
              "field_addsub": "field_addsub_kernel",
+             "field_linscan": "field_linscan_kernel<false>",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
              "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
@@ -1101,6 +1302,15 @@ KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "fold_add_tree": "fold_add_tree_kernel",
              "fold_horner": "fold_horner_kernel",
              "fold_dbl_any": "fold_dbl_kernel"}
+
+
+def _field_prog_by_program(hist) -> dict:
+    """field_prog launches by program name ("part": a quotient part,
+    "sum": a weighted sum) from its shape histogram."""
+    out: dict = {}
+    for key, n in hist.items():
+        out[key[0]] = out.get(key[0], 0) + n
+    return out
 
 
 def _shape_table(hist) -> dict:
@@ -1334,12 +1544,18 @@ def phase_slice(report: dict, cache_dir: str):
                              "launches in a warm proof")
     parts = vk.domain.extended_n // vk.domain.n
     one_lane = warm_shapes["mont_mul"][(1,)]
-    if (per_warm["field_prog"] != parts
-            or one_lane > MONT_MUL_ONE_LANE_PER_PROOF):
-        raise AssertionError(f"slice: {per_warm['field_prog']} field_prog "
-                             f"launches ({parts} parts), {one_lane} one-lane "
-                             "mont_mul launches in a warm proof")
+    by_prog = _field_prog_by_program(warm_shapes["field_prog"])
+    if (by_prog.get("part", 0) != parts
+            or one_lane > MONT_MUL_ONE_LANE_PER_PROOF
+            or per_warm["field_addsub"] > ADDSUB_PER_PROOF):
+        raise AssertionError(f"slice: field_prog launches {by_prog} ({parts} "
+                             f"parts), {one_lane} one-lane mont_mul and "
+                             f"{per_warm['field_addsub']} field_addsub "
+                             "launches in a warm proof")
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
+    log(f"slice: a warm proof launches field_addsub "
+        f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
+        f"field_linscan {per_warm['field_linscan']}, field_prog {by_prog}")
     log(f"slice: launches over keygen + 3 proofs {json.dumps(launches)}")
     log(f"slice: launches per warm proof {json.dumps(per_warm)}; mont_mul "
         f"at one lane {one_lane}, at 32,768 lanes "
@@ -1354,18 +1570,19 @@ def phase_slice(report: dict, cache_dir: str):
     if sha != RSA_PROOF_SHA256:
         raise AssertionError(f"slice: proof sha256 {sha}, expected "
                              f"{RSA_PROOF_SHA256}")
-    _check_no_plain_ntt("slice")
+    _check_no_plain_loops("slice")
     if not verify_proof(vk, srs, c.instances(), proof):
         raise AssertionError("slice: warm proof does not verify")
     if not verify_proof(vk, srs, c.instances(), cold_proof):
         raise AssertionError("slice: cold proof does not verify")
     _record_path(report, "rsa_k15_keygen_and_3_proofs", launches,
                  ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
-                  "fold_mixed", "fold_add", "fold_add_any", "fold_add_tree",
+                  "field_linscan", "fold_mixed", "fold_add", "fold_add_any", "fold_add_tree",
                   "fold_horner", "fold_dbl_any"))
     report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
                          quotient_s=tr.phases["quotient"])
     report["field_prog"].update(warm_proof_s=warm,
+                                warm_launches_by_program=by_prog,
                                 quotient_s=tr.phases["quotient"],
                                 profiled_warm_proof=prof,
                                 proof_sha256=sha)
@@ -1578,8 +1795,9 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     log(f"composite: cold proof {cold:.2f} s, warm proofs {warm:.2f} s, "
         f"{warm2:.2f} s; proof {len(proof)} bytes")
     log(f"composite: warm phases {json.dumps(phases)}")
-    log(f"composite: part program {prog.code.shape[0]} instructions "
-        f"{json.dumps(prog.op_counts())}, {prog.slots} slots, "
+    log(f"composite: part program {prog.code.shape[0]} instructions in "
+        f"{prog.groups} sub-programs {json.dumps(prog.op_counts())}, "
+        f"{prog.slots} slots, "
         f"{len(prog.leaf_keys)} leaves, {len(prog.const_keys)} constants")
     log(f"composite: part cache holds {st.parts_cached_bytes} bytes of "
         f"fixed and sigma parts (budget left {st._parts_budget} bytes)")
@@ -1598,10 +1816,14 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     if sha != COMPOSITE_PROOF_SHA256:
         raise AssertionError(f"composite: proof sha256 {sha}, expected "
                              f"{COMPOSITE_PROOF_SHA256}")
-    _check_no_plain_ntt("composite")
-    if per_warm["field_prog"] != parts or parts != 8:
-        raise AssertionError(f"composite: {per_warm['field_prog']} field_prog "
-                             f"launches in a warm proof, {parts} parts")
+    _check_no_plain_loops("composite")
+    by_prog = _field_prog_by_program(warm_shapes["field_prog"])
+    log(f"composite: a warm proof launches field_addsub "
+        f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
+        f"field_linscan {per_warm['field_linscan']}, field_prog {by_prog}")
+    if by_prog.get("part", 0) != parts or parts != 8:
+        raise AssertionError(f"composite: field_prog launches {by_prog} in a "
+                             f"warm proof, {parts} parts")
     if again != proof or profiled != proof:
         raise AssertionError("composite: same seed gave different bytes")
     if not verify_proof(vk, srs, inst, proof):
@@ -1614,17 +1836,18 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
         raise AssertionError("composite: verifies with nullifier_seed ^ 1")
     _record_path(report, "composite_k15_keygen_and_3_proofs", launches,
                  ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
-                  "fold_mixed", "fold_add_tree", "fold_horner"))
+                  "field_linscan", "fold_mixed", "fold_add_tree", "fold_horner"))
     for name, n in per_warm.items():
         report[name]["composite_launches_per_warm_proof"] = n
     report["ntt"].update(composite_advice_ntt_s=tr.phases["advice_ntt"],
                          composite_quotient_s=tr.phases["quotient"])
     report["field_prog"].update(
-        composite_keygen_s=kg, composite_cold_proof_s=cold,
+        composite_warm_launches_by_program=by_prog, composite_keygen_s=kg, composite_cold_proof_s=cold,
         composite_warm_proof_s=[warm, warm2], composite_phases=phases,
         composite_peak_bytes=peak,
         composite_parts_cached_bytes=st.parts_cached_bytes,
         composite_program={"instructions": int(prog.code.shape[0]),
+                           "groups": prog.groups,
                            "slots": prog.slots,
                            "leaves": len(prog.leaf_keys)},
         composite_profiled_warm_proof=prof, composite_proof_sha256=sha)

@@ -31,10 +31,10 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # the __global__ functions of csrc/, as ptxas names them (mangled)
 KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "field_prog_kernel",
-           "field_addsub_kernel", "ntt_pass_kernel", "fold_mixed_kernel",
-           "fold_mixed_tiled_kernel", "fold_mixed_tiled_rows_kernel",
-           "fold_add_kernel", "fold_add_tree_kernel", "fold_dbl_kernel",
-           "fold_horner_kernel")
+           "field_addsub_kernel", "field_linscan_kernel", "ntt_pass_kernel",
+           "fold_mixed_kernel", "fold_mixed_tiled_kernel",
+           "fold_mixed_tiled_rows_kernel", "fold_add_kernel",
+           "fold_add_tree_kernel", "fold_dbl_kernel", "fold_horner_kernel")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -43,9 +43,11 @@ _SIGNATURES = {
     # name: argtypes (pointers, then sizes, then modulus words and stream)
     "h2_mont_mul": [_P, _P, _P, _I64, _P, _P],
     "h2_mont_pow": [_P, _P, _I64, _P, _I32, _P, _P],
-    "h2_field_prog": [_P, _I32, _P, _P, _P, _I64, _I32, _P, _P],
+    "h2_field_prog": [_P, _P, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P],
     "h2_field_addsub": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I32, _P,
                         _P],
+    "h2_field_linscan": [_P, _I64, _I64, _P, _P, _I64, _I64, _I32, _I64,
+                         _I32, _I32, _I32, _I32, _I32, _P, _P, _P],
     "h2_ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                     _I32, _P, _P],
     "h2_fold_mixed": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _P,

@@ -6,9 +6,10 @@ canonical in [0, p) and in Montgomery form with R = 2^256 — the same bytes
 as halo2tpu's (..., 16) 16-bit limbs, so raw Montgomery arrays convert
 without arithmetic (halo2tpu_torch/convert.py).
 
-mont_mul, mont_pow and add/sub/neg launch the CUDA kernels
-(ops/cuda_field.py) for CUDA tensors and run their plain torch versions for
-CPU tensors; the scans are rounds of those operations.
+mont_mul, mont_pow, add/sub/neg and the prefix and suffix sums (the
+linear scan) launch the CUDA kernels (ops/cuda_field.py) for CUDA tensors
+and run their plain torch versions for CPU tensors; the prefix product is
+rounds of mont_mul.
 """
 from __future__ import annotations
 
@@ -189,6 +190,13 @@ def neg(spec: FieldSpec, a):
     return cuda_field.neg(spec, a)
 
 
+def linscan(spec: FieldSpec, v, a: int = 1, reverse: bool = False,
+            exclusive: bool = False, totals: bool = False):
+    """x_j = v_j + a x_(j-1) mod p along axis -2 ((n, 8) or (C, n, 8)):
+    ops/cuda_field.py::linscan."""
+    return cuda_field.linscan(spec, v, a, reverse, exclusive, totals)
+
+
 def is_zero(a):
     return (a == 0).all(-1)
 
@@ -214,7 +222,8 @@ def inv(spec: FieldSpec, a):
 
 def _scan_rounds(a, op):
     """Inclusive scan of op along axis 0 in Hillis-Steele rounds: log2(n)
-    launches, each over every row that has a partner."""
+    launches, each over every row that has a partner (the prefix
+    product's last few rows)."""
     n = a.shape[0]
     x, shift = a, 1
     while shift < n:
@@ -224,13 +233,14 @@ def _scan_rounds(a, op):
 
 
 def _prefix_sum_mod(spec: FieldSpec, a):
-    """Inclusive prefix sum mod p along axis 0."""
-    return _scan_rounds(a, lambda x, y: add(spec, x, y))
+    """Inclusive prefix sum mod p along axis 0 of an (n, 8) vector (one
+    field_linscan call on CUDA)."""
+    return cuda_field.linscan(spec, a)
 
 
 def suffix_sum_mod(spec: FieldSpec, a):
-    """S[i] = sum_{j >= i} a[j] mod p over axis 0."""
-    return torch.flip(_prefix_sum_mod(spec, torch.flip(a, [0])), [0])
+    """S[i] = sum_{j >= i} a[j] mod p over axis 0 (the reverse scan)."""
+    return cuda_field.linscan(spec, a, reverse=True)
 
 
 _SCAN_BLOCK = 16

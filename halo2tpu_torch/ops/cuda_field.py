@@ -1,14 +1,18 @@
-"""Montgomery multiply and power, and add / sub / neg mod p: the CUDA
-kernels (csrc/mont_mul.cu, csrc/field_addsub.cu) and their plain torch
-versions.  Counterparts of halo2tpu/ops/pallas_field.py and of
-halo2tpu/fields/jfield.py::mont_pow, add, sub and neg.
+"""Montgomery multiply and power, add / sub / neg mod p and the linear
+scan: the CUDA kernels (csrc/mont_mul.cu, csrc/field_addsub.cu,
+csrc/field_linscan.cu) and their plain torch versions.  Counterparts of
+halo2tpu/ops/pallas_field.py, of halo2tpu/fields/jfield.py::mont_pow, add,
+sub, neg, _prefix_sum_mod and suffix_sum_mod, and of the scans inside
+halo2tpu/plonk/engine.py::_div_linear_jit and _eval_group_jit.
 
-`mont_mul`, `mont_pow` and `add_sub` (behind `add`, `sub` and `neg`)
-launch their kernels for CUDA tensors and take the plain versions only for
-CPU tensors.  The plain versions work on any device (chip_smoke.py compares
-them with the kernels on the card).  Beside its count of launches, each
-wrapper keeps `shapes`, a histogram of what it launched: (lanes,), and
-(lanes, "add" | "sub" | "neg") for add_sub.
+`mont_mul`, `mont_pow`, `add_sub` (behind `add`, `sub` and `neg`) and
+`linscan` launch their kernels for CUDA tensors and take the plain
+versions only for CPU tensors.  The plain versions work on any device
+(chip_smoke.py compares them with the kernels on the card;
+`linscan_plain.cuda_calls` counts its runs on CUDA tensors).  Beside its
+count of launches, each wrapper keeps `shapes`, a histogram of what it
+launched: (lanes,), (lanes, "add" | "sub" | "neg") for add_sub, and (n,
+columns, output, "one" | "a", launches) for linscan.
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
@@ -261,7 +265,19 @@ def _operand(x, shape):
 def add_sub(spec, op: int, a, b=None):
     """Lanewise a + b (op ADD), a - b (SUB) or -a (NEG) mod p of (..., 8)
     int32 tensors (broadcast), canonical.  CUDA tensors launch the kernel;
-    CPU tensors take add_plain / sub_plain / neg_plain."""
+    CPU tensors take add_plain / sub_plain / neg_plain.  Same-shape
+    contiguous CUDA operands (most launches of a proof) take a short path
+    that skips the broadcast layout."""
+    if op == NEG:
+        b = a
+    if (a.is_cuda and a.shape == b.shape and a.dtype == b.dtype == torch.int32
+            and a.shape[-1] == NLIMB and a.device == b.device
+            and a.is_contiguous() and b.is_contiguous()):
+        out = torch.empty_like(a)
+        n = out.numel() // NLIMB
+        if n:
+            _launch_addsub(spec, op, a, 1, n, b, 1, n, out, n)
+        return out
     ts = (a,) if op == NEG else (a, b)
     if all(t.device.type == "cpu" for t in ts):
         return _PLAIN[op](spec, *ts)
@@ -271,7 +287,6 @@ def add_sub(spec, op: int, a, b=None):
     if any(t.dtype != torch.int32 or t.shape[-1] != NLIMB for t in ts):
         raise TypeError(f"{_OP_NAMES[op]}: operands must be int32 limb "
                         "tensors")
-    from .._build import check, lib
     shape = torch.broadcast_shapes(*(t.shape for t in ts))
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     n = out.numel() // NLIMB
@@ -279,13 +294,18 @@ def add_sub(spec, op: int, a, b=None):
         return out
     av, adiv, amod = _operand(a, shape)
     bv, bdiv, bmod = (av, adiv, amod) if op == NEG else _operand(b, shape)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    check(lib().h2_field_addsub(av.data_ptr(), adiv, amod, bv.data_ptr(),
-                                bdiv, bmod, out.data_ptr(), n, op,
+    _launch_addsub(spec, op, av, adiv, amod, bv, bdiv, bmod, out, n)
+    return out
+
+
+def _launch_addsub(spec, op, a, adiv, amod, b, bdiv, bmod, out, n):
+    from .._build import check, lib
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    check(lib().h2_field_addsub(a.data_ptr(), adiv, amod, b.data_ptr(), bdiv,
+                                bmod, out.data_ptr(), n, op,
                                 spec.mod_words_ptr, stream), "field_addsub")
     add_sub.launches += 1
     add_sub.shapes[(n, _OP_NAMES[op])] += 1
-    return out
 
 
 add_sub.launches = 0
@@ -303,3 +323,127 @@ def sub(spec, a, b):
 
 def neg(spec, a):
     return add_sub(spec, NEG, a)
+
+
+# -- the linear scan ---------------------------------------------------------
+
+SCAN_THREADS = 256     # threads a block (csrc/field_linscan.cu kThreads)
+SCAN_LOG = 8           # log2(SCAN_THREADS): the block scan's rounds
+# elements a thread folds serially: with a product an element (a != 1)
+# short runs keep the serial chain short; a sum (a = 1) is adds only
+SCAN_RUN = 4
+SCAN_RUN_ONE = 16
+
+
+def scan_shapes(n: int, one: bool) -> tuple:
+    """The kernel's schedule for a scan of n elements: (run, blocks a
+    column, run of the carry pass).  A block covers SCAN_THREADS * run
+    elements, the first block padded at its start; the carry pass scans
+    the blocks' totals in one block of SCAN_THREADS threads."""
+    run = SCAN_RUN_ONE if one else SCAN_RUN
+    nb = max(1, -(-n // (SCAN_THREADS * run)))
+    return run, nb, -(-nb // SCAN_THREADS)
+
+
+def _mont_limbs(spec, v: int) -> list:
+    """The Montgomery form of v as eight 32-bit words."""
+    m = v * (1 << 256) % spec.p
+    return [(m >> (32 * i)) & MASK for i in range(NLIMB)]
+
+
+_SCAN_POWS: dict = {}
+
+
+def _scan_pows(spec, a: int, run: int, run2: int):
+    """ctypes words the kernel takes: Montgomery a and a^(run 2^k) for k <
+    SCAN_LOG, then A = a^(SCAN_THREADS run) and A^(run2 2^k)."""
+    key = (spec.p, a, run, run2)
+    words = _SCAN_POWS.get(key)
+    if words is None:
+        A = pow(a, SCAN_THREADS * run, spec.p)
+        vals = ([a] + [pow(a, run << k, spec.p) for k in range(SCAN_LOG)]
+                + [A] + [pow(A, run2 << k, spec.p) for k in range(SCAN_LOG)])
+        flat = [w for v in vals for w in _mont_limbs(spec, v)]
+        words = (ctypes.c_uint32 * len(flat))(*flat)
+        if len(_SCAN_POWS) > 256:
+            _SCAN_POWS.clear()
+        _SCAN_POWS[key] = words
+    return words
+
+
+def linscan_plain(spec, v, a: int = 1, reverse: bool = False,
+                  exclusive: bool = False, totals: bool = False):
+    """x_j = v_j + a x_(j-1) mod p along axis -2 of v ((n, 8) or (C, n,
+    8)), in plain torch: Hillis-Steele rounds, round k adding a^(2^k)
+    times the value 2^k rows back (with a = 1, one add a round).  reverse
+    runs j from the last row to the first; exclusive gives x_(j-1) at j (0
+    at the first); totals only the last x (v.shape[:-2] + (8,))."""
+    if v.device.type == "cuda":
+        linscan_plain.cuda_calls += 1
+    a %= spec.p
+    x = v.flip(-2) if reverse else v
+    n, shift = x.shape[-2], 1
+    while shift < n:
+        y = x[..., :n - shift, :]
+        if a != 1:
+            c = torch.tensor(_mont_limbs(spec, pow(a, shift, spec.p)),
+                             dtype=torch.int64, device=v.device)
+            y = mont_mul_plain(spec, y, i32(c))
+        x = torch.cat([x[..., :shift, :],
+                       add_plain(spec, x[..., shift:, :], y)], -2)
+        shift *= 2
+    if totals:
+        return x[..., -1, :].contiguous()
+    if exclusive:
+        x = torch.cat([torch.zeros_like(x[..., :1, :]), x[..., :-1, :]], -2)
+    return (x.flip(-2) if reverse else x).contiguous()
+
+
+linscan_plain.cuda_calls = 0
+
+
+def linscan(spec, v, a: int = 1, reverse: bool = False,
+            exclusive: bool = False, totals: bool = False):
+    """The linear scan of linscan_plain.  A CUDA tensor launches the kernel
+    (one launch when the scan fits one block of SCAN_THREADS * run rows,
+    else three, two for totals); its (n, 8) rows, or the (n, 8) columns of
+    a (C, n, 8) stack, are read in place at any strides that keep each
+    element 16-byte aligned.  A CPU tensor takes linscan_plain."""
+    if v.device.type == "cpu":
+        return linscan_plain(spec, v, a, reverse, exclusive, totals)
+    if v.device.type != "cuda":
+        raise ValueError(f"linscan: operand on {v.device}")
+    if v.dtype != torch.int32 or v.dim() not in (2, 3) or v.shape[-1] != NLIMB:
+        raise TypeError("linscan: need an (n, 8) or (C, n, 8) int32 limb "
+                        "tensor")
+    a %= spec.p
+    one = a == 1
+    x = v if v.dim() == 3 else v.unsqueeze(0)
+    cols, n = x.shape[0], x.shape[1]
+    if (x.stride(2) != 1 or x.data_ptr() % 16 or x.stride(1) % 4
+            or x.stride(0) % 4):
+        x = x.contiguous()
+    out_shape = v.shape[:-2] + (NLIMB,) if totals else v.shape
+    out = torch.empty(out_shape, dtype=torch.int32, device=v.device)
+    if n == 0 or cols == 0:
+        return out
+    run, nb, run2 = scan_shapes(n, one)
+    scratch = (torch.empty(2 * cols * nb * NLIMB, dtype=torch.int32,
+                           device=v.device) if nb > 1 else out)
+    from .._build import check, lib
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    pows = _scan_pows(spec, a, run, run2)
+    check(lib().h2_field_linscan(
+        x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(),
+        scratch.data_ptr(), n, cols, run, nb, run2, int(reverse),
+        int(exclusive), int(totals), int(one), ctypes.addressof(pows),
+        spec.mod_words_ptr, stream), "field_linscan")
+    launches = 1 if nb == 1 else 2 if totals else 3
+    linscan.launches += launches
+    mode = "totals" if totals else "exclusive" if exclusive else "full"
+    linscan.shapes[(n, cols, mode, "one" if one else "a", launches)] += 1
+    return out
+
+
+linscan.launches = 0
+linscan.shapes = Counter()

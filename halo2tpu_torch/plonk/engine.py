@@ -5,10 +5,12 @@ Vectors are (n, 8) int32 Montgomery limb tensors on the engine's device.
 Every method keeps data on the device; the only device -> host reads in a
 proof are commitment points, evaluations, one row per grand-product chunk
 and the lookup failure flags.  Field operations go through jfield (the
-mont_mul and add/sub kernels on CUDA), transforms through ops/ntt.py (the
-NTT kernel, coset and inverse scales fused in); commitments go through the
-windowed MSM (the fold_mixed / fold_add_any / fold_dbl_any kernels on
-CUDA).
+mont_mul and add/sub kernels on CUDA), the evaluations and div_linear
+through its linear scan (the field_linscan kernel), weighted sums through
+a field program (the field_prog kernel), transforms through ops/ntt.py
+(the NTT kernel, coset and inverse scales fused in); commitments go
+through the windowed MSM (the fold_mixed / fold_add_any / fold_dbl_any
+kernels on CUDA).
 """
 from __future__ import annotations
 
@@ -22,19 +24,8 @@ from .domain import Domain
 from ..fields import jfield
 from ..fields.jfield import FR, NLIMB, device_of
 from ..ops import ntt as tntt
+from ..ops.field_prog import field_prog, groups_for, sum_program
 from ..ops.msm import NUM_WINDOWS, MSMContext, points_tag
-
-
-def _tree_sum(arr, dim: int = 0):
-    """Sum mod r over `dim` by halving rounds."""
-    while arr.shape[dim] > 1:
-        half = arr.shape[dim] // 2
-        head = jfield.add(FR, arr.narrow(dim, 0, half),
-                          arr.narrow(dim, half, half))
-        arr = head if 2 * half == arr.shape[dim] else torch.cat(
-            [head, arr.narrow(dim, 2 * half, arr.shape[dim] - 2 * half)],
-            dim)
-    return arr.select(dim, 0)
 
 
 def _powers(a_enc, n: int):
@@ -53,6 +44,18 @@ def _pack_keys(plain):
     """(m, 8) plain limbs -> (m, 8) int64 words, most significant first
     (lexicographic row order == numeric order)."""
     return jfield.u64(plain).flip(-1)
+
+
+_SUM_PROGRAMS: dict = {}
+
+
+def _sum_program(m: int, n: int):
+    """ops/field_prog.py::sum_program for m vectors of n rows, cached."""
+    key = (m, groups_for(n))
+    prog = _SUM_PROGRAMS.get(key)
+    if prog is None:
+        prog = _SUM_PROGRAMS[key] = sum_program(m, key[1])
+    return prog
 
 
 _MSM_CTX_CACHE: dict = {}
@@ -258,12 +261,11 @@ class TorchEngine:
         for q, part in enumerate(parts):
             ci = inv_mod(polyops.part_shift(d, q), R)
             us.append(tntt.intt(self._plan, part, post=self._part_pows(ci)))
-        U = torch.stack(us)                                  # (step, n, 8)
         chunks = []
         for s in range(qpd):
             coefs = [pow(alpha_inv, q * s, R) * pow(g_n_inv, s, R)
                      * step_inv % R for q in range(step)]
-            chunks.append(self._wsum(U, self._encode(coefs)))
+            chunks.append(self._wsum(us, self._encode(coefs)))
         return chunks
 
     # -- lookups -----------------------------------------------------------
@@ -314,13 +316,18 @@ class TorchEngine:
             raise ValueError("lookup failure: input value not in table")
 
     # -- evaluation --------------------------------------------------------
-    def _wsum(self, stacked, coefs):
-        """sum_i coefs[i] * stacked[i]: (m, n, 8) x (m, 8)."""
-        return _tree_sum(jfield.mont_mul(FR, stacked, coefs[:, None]))
+    def _wsum(self, vecs, coefs):
+        """sum_i coefs[i] * vecs[i] over (n, 8) vectors, coefs (m, 8)
+        Montgomery: one field-program launch (ops/field_prog.py::
+        sum_program)."""
+        n = vecs[0].shape[0]
+        return field_prog(FR, _sum_program(len(vecs), n), list(vecs), coefs,
+                          n)
 
     def eval_polys(self, pairs):
-        """[(poly, x), ...] -> evaluations; one stacked multiply + tree sum
-        per distinct x (chunked to 2^22 rows), one decode at the end."""
+        """[(poly, x), ...] -> evaluations; for each distinct x one reverse
+        linear scan of the stacked polys (Horner's rule, its total only),
+        chunked to 2^22 rows; one decode at the end."""
         groups: dict[int, list[int]] = {}
         for i, (_, x) in enumerate(pairs):
             groups.setdefault(x % R, []).append(i)
@@ -329,14 +336,13 @@ class TorchEngine:
         for x, idxs in groups.items():
             n = max(pairs[i][0].shape[0] for i in idxs)
             per = max(1, budget // n)
-            pows = _powers(self._enc_scalar(x), n)
             for j in range(0, len(idxs), per):
                 sub_idx = idxs[j:j + per]
                 stacked = torch.stack([torch.nn.functional.pad(
                     pairs[i][0], (0, 0, 0, n - pairs[i][0].shape[0]))
                     for i in sub_idx])
-                prod = jfield.mont_mul(FR, stacked, pows)
-                results.append((_tree_sum(prod, 1), sub_idx))
+                results.append((jfield.linscan(FR, stacked, x, reverse=True,
+                                               totals=True), sub_idx))
         vals = FR.decode(torch.cat([r[0] for r in results]))
         out = [None] * len(pairs)
         vi = 0
@@ -347,17 +353,10 @@ class TorchEngine:
         return out
 
     def div_linear(self, vec, a):
-        """vec(X) / (X - a), zero-padded to the input length: power vectors
-        + one suffix scan."""
-        a %= R
-        a_e = self._enc_scalar(a)
-        ainv_e = self._enc_scalar(inv_mod(a, R))
-        n = vec.shape[0]
-        t = jfield.mont_mul(FR, vec, _powers(a_e, n))
-        S = jfield.suffix_sum_mod(FR, t)
-        Sshift = torch.cat([S[1:], torch.zeros_like(S[:1])])
-        out = jfield.mont_mul(FR, Sshift, _powers(ainv_e, n))
-        return jfield.mont_mul(FR, out, ainv_e)
+        """vec(X) / (X - a), zero-padded to the input length: out_i =
+        sum_(j>i) vec_j a^(j-i-1), the exclusive reverse linear scan with
+        multiplier a."""
+        return jfield.linscan(FR, vec, a % R, reverse=True, exclusive=True)
 
     def weighted_sum(self, vecs, coefs):
         """sum_i coefs[i] * vecs[i] in chunks of 64 vectors."""
@@ -365,7 +364,7 @@ class TorchEngine:
         acc = None
         for i in range(0, len(vecs), 64):
             cenc = self._encode([c % R for c in coefs[i:i + 64]])
-            part = self._wsum(torch.stack(vecs[i:i + 64]), cenc)
+            part = self._wsum(vecs[i:i + 64], cenc)
             acc = part if acc is None else jfield.add(FR, acc, part)
         return acc
 

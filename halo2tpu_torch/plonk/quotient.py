@@ -30,7 +30,7 @@ from .expression import (AdviceQuery, Constant, FixedQuery, InstanceQuery,
 from ..fields import jfield
 from ..fields.jfield import FR
 from ..ops.field_prog import (ADD, CONST, HORNER, LOAD, MUL, NEG, OUT, S_MAX,
-                              SQR, SUB, Program, field_prog)
+                              SQR, SUB, Program, field_prog, groups_for)
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +136,8 @@ def compress_exprs(eng, exprs, col_vals, theta):
 # ("lookup", i, 0 | 1 | 2) for lookup i's z, A' and S', ("l0",),
 # ("l_last",), ("l_active",) and ("wq",) (c_q * omega^i).  Constant keys:
 # ("value", v), the challenges ("beta",), ("gamma",), ("theta",), ("y",),
-# ("bd", j) = beta * delta^j, and ("zh_inv",), the part's 1 / Z_H.
+# ("bd", j) = beta * delta^j, ("zh_inv",), the part's 1 / Z_H, and
+# ("pow", key, e), constant key to the power e (the sub-programs' combine).
 
 def _ld(*key, rot: int = 0):
     return ("load", key, rot)
@@ -188,16 +189,18 @@ def _horner(values, key):
 class _Emitter:
     """Sethi-Ullman code generation: each binary node evaluates its deeper
     operand first, so a tree of label l (a leaf 1; a node the larger of
-    its operands' labels, or one more when they are equal) takes l slots."""
+    its operands' labels, or one more when they are equal) takes l slots.
+    One emitter a sub-program; `leaves` and `consts` (key -> index) are
+    shared by the sub-programs of one program."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, leaves: dict, consts: dict, labels: dict):
         self.n = n
         self.code: list = []
-        self.leaves: dict = {}
-        self.consts: dict = {}
+        self.leaves = leaves
+        self.consts = consts
         self.free: list = []
         self.slots = 0
-        self._labels: dict = {}
+        self._labels = labels
 
     def leaf(self, key) -> int:
         return self.leaves.setdefault(key, len(self.leaves))
@@ -264,27 +267,82 @@ class _Emitter:
         return sx
 
 
-def compile_program(values, n: int, fold=None, scale=None) -> Program:
+# the cost of an instruction in the balance of sub-programs: a Montgomery
+# product (MUL, SQR, HORNER) takes about six times an add's time
+PRODUCT_COST = 6
+
+
+def _cost(node, memo: dict) -> int:
+    """Instruction cost of emitting node (shared subtrees are emitted at
+    each use, and counted so)."""
+    got = memo.get(id(node))
+    if got is None:
+        kind = node[0]
+        if kind in ("load", "const"):
+            got = 1
+        elif kind == "neg":
+            got = 1 + _cost(node[1], memo)
+        elif kind == "mul" and node[1] == node[2]:
+            got = PRODUCT_COST + _cost(node[1], memo)
+        else:
+            got = ((PRODUCT_COST if kind in ("mul", "horner") else 1)
+                   + _cost(node[1], memo) + _cost(node[2], memo))
+        memo[id(node)] = got
+    return got
+
+
+def split_values(costs: list, groups: int) -> list:
+    """Cut len(costs) values into `groups` contiguous non-empty runs of
+    about equal cost (each value after a run's first also costs a HORNER):
+    returns the groups + 1 boundaries."""
+    m = len(costs)
+    groups = max(1, min(groups, m))
+    pre = [0]
+    for i, c in enumerate(costs):
+        pre.append(pre[-1] + c + (PRODUCT_COST if i else 0))
+    cuts = [0]
+    for g in range(1, groups):
+        target = pre[m] * g / groups
+        lo, hi = cuts[-1] + 1, m - (groups - g)
+        cuts.append(min(range(lo, hi + 1), key=lambda c: abs(pre[c] - target)))
+    return cuts + [m]
+
+
+def compile_program(values, n: int, fold=None, scale=None,
+                    groups: int = 1, name: str = "program") -> Program:
     """One program over n rows: the value of one tree or, with `fold` (a
-    constant key c), sum_i c^(N-1-i) v_i folded by Horner as the values
-    are computed (an accumulator slot and one more for each value), then
-    times the constant `scale` if given.  Raises ValueError past S_MAX
-    slots."""
+    constant key c), sum_i c^(N-1-i) v_i, split into at most `groups`
+    sub-programs: split_values cuts the values into runs, each folded by
+    Horner into its own accumulator as the values are computed (an
+    accumulator slot and one more for each value); the combine multiplies
+    run g's result by c^(values after run g), the constant ("pow", c, e),
+    none for the last run, and the sum by the constant `scale` if given.
+    Raises ValueError past S_MAX slots in any sub-program."""
     if fold is None and len(values) != 1:
         raise ValueError("several values need a fold constant")
-    em = _Emitter(n)
-    acc = em.emit(values[0] if values else _cst("value", 0))
-    for v in values[1:]:
-        s = em.emit(v)
-        em.code.append((HORNER, acc, s, em.const(fold)))
-        em.free.append(s)
-    if scale is not None:
-        s = em.emit(("const", scale))
-        em.code.append((MUL, acc, acc, s))
-        em.free.append(s)
-    em.code.append((OUT, 0, acc, 0))
-    return Program(np.asarray(em.code, dtype=np.int32).reshape(-1, 4),
-                   em.slots, list(em.leaves), list(em.consts))
+    values = list(values) or [_cst("value", 0)]
+    memo: dict = {}
+    cuts = split_values([_cost(v, memo) for v in values], groups)
+    leaves: dict = {}
+    consts: dict = {}
+    labels: dict = {}
+    code, starts, comb, slots = [], [0], [], 0
+    for lo, hi in zip(cuts, cuts[1:]):
+        em = _Emitter(n, leaves, consts, labels)
+        acc = em.emit(values[lo])
+        for v in values[lo + 1:hi]:
+            s = em.emit(v)
+            em.code.append((HORNER, acc, s, em.const(fold)))
+            em.free.append(s)
+        em.code.append((OUT, 0, acc, 0))
+        code += em.code
+        starts.append(len(code))
+        slots = max(slots, em.slots)
+        after = len(values) - hi
+        comb.append(em.const(("pow", fold, after)) if after else -1)
+    sc = -1 if scale is None else consts.setdefault(scale, len(consts))
+    return Program(np.asarray(code, dtype=np.int32).reshape(-1, 4), starts,
+                   comb, sc, slots, list(leaves), list(consts), name=name)
 
 
 def _perm_layout(cs):
@@ -345,11 +403,14 @@ def part_values(cs, n: int) -> list:
     return values
 
 
-def part_program(cs, n: int) -> Program:
+def part_program(cs, n: int, groups: int | None = None) -> Program:
     """A quotient part as one program: hv / Z_H, with hv = sum_i y^(N-1-i)
-    v_i over part_values (equal to the verifier's Horner y-fold)."""
+    v_i over part_values (equal to the verifier's Horner y-fold), in
+    `groups` sub-programs (default ops/field_prog.py::groups_for(n))."""
     return compile_program(part_values(cs, n), n, fold=("y",),
-                           scale=("zh_inv",))
+                           scale=("zh_inv",),
+                           groups=groups_for(n) if groups is None else groups,
+                           name="part")
 
 
 def const_value(key, ch: dict, zh_inv: int) -> int:
@@ -358,6 +419,8 @@ def const_value(key, ch: dict, zh_inv: int) -> int:
     kind = key[0]
     if kind == "value":
         return key[1]
+    if kind == "pow":
+        return pow(const_value(key[1], ch, zh_inv), key[2], R)
     if kind == "bd":
         return ch["beta"] * pow(FR_DELTA, key[1], R) % R
     if kind == "zh_inv":

@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 profile_proof.py [--tree DIR] [--circuit rsa|composite]
+    python3 profile_proof.py [--tree DIR] --kernels
 
 Imports halo2tpu_torch from DIR (default: this file's directory), so that
 two trees (a commit and its parent, unpacked with `git archive`) can be
@@ -17,6 +18,17 @@ warm proof) with mont_mul's lane histogram, and from the profiled proof
 the CUDA kernels the card ran (the tree's own and torch's), the device
 busy share, and the sha256 of the proof bytes (the proof must verify).
 Without CUDA it exits non-zero.
+
+With --kernels it times, instead of a proof, the calls whose kernels a
+tree may have changed, at a k=15 proof's shapes, through the tree's own
+entry points (so that a commit and its parent compare in one run):
+field_prog on the RSA-SHA256 and the composite part programs at 2^15 rows
+(the tree's part_program, random leaves and challenges), add and mont_mul
+at 32,768 lanes, and the engine's div_linear (2^15 rows), eval_polys (16
+polys of 2^15 rows at one point) and weighted_sum (64 vectors of 2^15
+rows), and for a tree that splits field programs the part programs at
+every sub-program count G.  Each is the median of ROUNDS rounds of CUDA-event means (kernels)
+or of synchronized wall times (engine calls); one JSON line.
 
 `profile_run` (also used by chip_smoke.py) profiles any call.
 """
@@ -97,7 +109,7 @@ def _wrappers() -> dict:
     import importlib
     out = {}
     for mod, names in (("ops.cuda_field", ("mont_mul", "mont_pow",
-                                           "add_sub")),
+                                           "add_sub", "linscan")),
                        ("ops.field_prog", ("field_prog",)),
                        ("ops.ntt", ("ntt_kernel",)),
                        ("ops.cuda_ec", ("fold_mixed", "fold_add",
@@ -114,11 +126,124 @@ def _wrappers() -> dict:
     return out
 
 
+ROUNDS = 5
+
+
+class _NoBound:
+    """chip_smoke._field_prog_case's card, for the bound not asked here."""
+
+    @staticmethod
+    def bound(nbytes, mul32):
+        return {}
+
+
+def _median_event_ms(fn, iters: int) -> float:
+    """Median over ROUNDS of the CUDA-event mean ms of fn() over iters."""
+    import statistics
+    import torch
+    fn()
+    times = []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    return statistics.median(times)
+
+
+def _median_wall_ms(fn, iters: int) -> float:
+    """Median over ROUNDS of the mean synchronized wall ms of fn()."""
+    import statistics
+    import torch
+    fn()
+    times = []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / iters * 1e3)
+    return statistics.median(times)
+
+
+def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
+    """The --kernels timings of the imported tree (see the docstring), at
+    n rows on `device`."""
+    import torch
+    from halo2tpu_torch.fields import jfield
+    from halo2tpu_torch.ops import cuda_field
+    from halo2tpu_torch.ops.field_prog import field_prog
+    from halo2tpu_torch.plonk.engine import TorchEngine
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(7)
+    out = {}
+    for case, circuit in (("rsa", chip_smoke.rsa_circuit()),
+                          ("composite", chip_smoke.composite_circuit())):
+        prog, by_key, consts, _, _, _, _ = chip_smoke._field_prog_case(
+            circuit, g, n, _NoBound, dev)
+        leaves = [by_key[k] for k in prog.leaf_keys]
+        out[f"field_prog_{case}_part_ms"] = _median_event_ms(
+            lambda: field_prog(jfield.FR, prog, leaves, consts, n), 10)
+        out[f"field_prog_{case}_part_groups"] = getattr(prog, "groups", 1)
+        if hasattr(prog, "groups"):     # a tree that splits programs
+            from halo2tpu_torch.fields.bn254 import R
+            from halo2tpu_torch.ops.field_prog import G_MAX
+            from halo2tpu_torch.plonk.quotient import part_program
+            cs_ = chip_smoke._configured_cs(circuit)
+            for G in range(1, G_MAX + 1):
+                p = part_program(cs_, n, groups=G)
+                c = jfield.FR.encode([(i * 7919 + 1) % R for i in range(
+                    len(p.const_keys))], dev)
+                x = [by_key[k] for k in p.leaf_keys]
+                out[f"field_prog_{case}_part_ms_by_groups"] = {
+                    **out.get(f"field_prog_{case}_part_ms_by_groups", {}),
+                    G: _median_event_ms(
+                        lambda: field_prog(jfield.FR, p, x, c, n), 10)}
+    x, y = chip_smoke._rand_fe(g, n, dev), chip_smoke._rand_fe(g, n, dev)
+    out[f"add_L{n}_ms"] = _median_event_ms(
+        lambda: cuda_field.add(jfield.FR, x, y), 2000)
+    out[f"mont_mul_L{n}_ms"] = _median_event_ms(
+        lambda: cuda_field.mont_mul(jfield.FR, x, y), 2000)
+
+    class Eng:                       # the engine methods, with no SRS
+        _encode = TorchEngine._encode
+        _enc_scalar = TorchEngine._enc_scalar
+        _wsum = TorchEngine._wsum
+        div_linear = TorchEngine.div_linear
+        eval_polys = TorchEngine.eval_polys
+        weighted_sum = TorchEngine.weighted_sum
+
+        def __init__(self):
+            self.device = dev
+            self._scalar_cache = {}
+
+    eng = Eng()
+    a = 0x1234567890ABCDEF1234567890ABCDEF
+    polys = [chip_smoke._rand_fe(g, n, dev) for _ in range(16)]
+    vecs = [chip_smoke._rand_fe(g, n, dev) for _ in range(64)]
+    coefs = list(range(3, 3 + 64))
+    out[f"div_linear_L{n}_ms"] = _median_wall_ms(
+        lambda: eng.div_linear(x, a), 20)
+    out[f"eval_polys_16x{n}_ms"] = _median_wall_ms(
+        lambda: eng.eval_polys([(p, a) for p in polys]), 20)
+    out[f"weighted_sum_64x{n}_ms"] = _median_wall_ms(
+        lambda: eng.weighted_sum(vecs, coefs), 20)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--circuit", choices=("rsa", "composite"),
                     default="rsa")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the kernels' calls instead of a proof")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -141,6 +266,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    if args.kernels:
+        print(json.dumps({"tree": tree, "nvidia_smi": smi,
+                          **kernel_times(chip_smoke)}))
+        return 0
     workdir = os.path.join(tree, ".cache", "profile_proof")
     os.environ["HALO2TPU_CACHE"] = workdir    # no on-disk MSM table
     if args.circuit == "rsa":

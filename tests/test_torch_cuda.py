@@ -115,17 +115,18 @@ def test_field_prog_kernel_matches_plain(dev, n):
 
 
 def test_field_prog_many_slots_and_refusals(dev):
-    """A program of 13 slots (over 48 KB of shared memory a block) matches
-    the interpreter; a misaligned leaf and a wrong constant table are
-    refused."""
+    """A program of four sub-programs of 13 slots (52 KB of shared memory
+    a block: over the 48 KB default) matches the interpreter; a
+    misaligned leaf and a wrong constant table are refused."""
     leaves = [ex.AdviceQuery(i % 5, i % 7 - 3) for i in range(1 << 12)]
     while len(leaves) > 1:
         leaves = [ex.Product(leaves[i], leaves[i + 1])
                   if i % 4 else ex.Sum(leaves[i], leaves[i + 1])
                   for i in range(0, len(leaves), 2)]
     n = 300
-    prog = quotient.compile_program([quotient.expr_ir(leaves[0])], n)
-    assert prog.slots == 13
+    tree = quotient.expr_ir(leaves[0])
+    prog = quotient.compile_program([tree] * 4, n, fold=("y",), groups=4)
+    assert (prog.slots, prog.groups) == (13, 4)
     got, want = _run_both(dev, prog, n, seed=9, stride_cols=1)
     assert torch.equal(got, want)
     x = torch.zeros((n, 12), dtype=torch.int32, device=dev)
@@ -139,6 +140,36 @@ def test_field_prog_many_slots_and_refusals(dev):
                            device=dev)
     with pytest.raises(ValueError):
         field_prog.field_prog(FR, prog, ok, one_more, n)
+
+
+@pytest.mark.parametrize("name", ["rsa", "composite"])
+def test_field_prog_split_parts_match_plain(dev, name):
+    """The RSA-SHA256 and composite part programs at a k=15 part's 2^15
+    rows, split into groups_for(2^15) = 4 sub-programs, and the RSA one
+    unsplit and at G_MAX: kernel equal to the interpreter."""
+    import chip_smoke
+    circuit = {"rsa": chip_smoke.rsa_circuit,
+               "composite": chip_smoke.composite_circuit}[name]()
+    cs = ConstraintSystem()
+    circuit.configure(cs)
+    n = 1 << 15
+    progs = [quotient.part_program(cs, n)]
+    if name == "rsa":
+        progs += [quotient.part_program(cs, n, groups=g)
+                  for g in (1, field_prog.G_MAX)]
+    assert progs[0].groups == 4
+    for prog in progs:
+        got, want = _run_both(dev, prog, n, seed=15, stride_cols=2)
+        assert torch.equal(got, want), prog.groups
+
+
+def test_sum_program_matches_plain(dev):
+    """The engine's weighted sum (ops/field_prog.py::sum_program) over 64
+    vectors of 2^15 rows, in 4 sub-programs."""
+    n = 1 << 15
+    prog = field_prog.sum_program(64, field_prog.groups_for(n))
+    got, want = _run_both(dev, prog, n, seed=16)
+    assert torch.equal(got, want)
 
 
 def test_point_kernels_match_plain(dev):
@@ -427,3 +458,50 @@ def test_field_addsub_kernel_matches_plain(dev, spec, p):
             assert torch.equal(got, plain(spec, x, y))
         assert torch.equal(cuda_field.neg(spec, x),
                            cuda_field.neg_plain(spec, x))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 4096, 1 << 15, 1 << 20])
+def test_linscan_kernel_matches_plain(dev, n):
+    """field_linscan at one column: forward and reverse, a = 1 and a
+    random a, every x, the exclusive x and the total, bitwise equal to the
+    plain scan; one launch within a block, else three (two for a total)."""
+    rng = np.random.default_rng(n)
+    v = _rand_stack(rng, (n,)).to(dev)
+    a_rand = int.from_bytes(rng.bytes(32), "big") % R
+    for a in (1, a_rand):
+        run, nb, _ = cuda_field.scan_shapes(n, a == 1)
+        for reverse in (False, True):
+            for exclusive, totals in ((False, False), (True, False),
+                                      (False, True)):
+                before = cuda_field.linscan.launches
+                plain = cuda_field.linscan_plain.cuda_calls
+                got = cuda_field.linscan(FR, v, a, reverse, exclusive,
+                                         totals)
+                assert cuda_field.linscan.launches - before == (
+                    1 if nb == 1 else 2 if totals else 3)
+                assert cuda_field.linscan_plain.cuda_calls == plain
+                assert torch.equal(got, cuda_field.linscan_plain(
+                    FR, v, a, reverse, exclusive, totals)), (a, reverse,
+                                                            exclusive, totals)
+
+
+def test_linscan_kernel_stacks_match_plain(dev):
+    """A group of 16 polys of 2^15 rows (eval_polys' reverse total), a
+    strided view of an (n, C, 8) stack read in place, and a poly's
+    div_linear (exclusive reverse), bitwise equal to the plain scan."""
+    rng = np.random.default_rng(17)
+    n = 1 << 15
+    x = int.from_bytes(rng.bytes(32), "big") % R
+    polys = _rand_stack(rng, (16, n)).to(dev)
+    assert torch.equal(
+        cuda_field.linscan(FR, polys, x, reverse=True, totals=True),
+        cuda_field.linscan_plain(FR, polys, x, reverse=True, totals=True))
+    stack = _rand_stack(rng, (n, 5)).to(dev)
+    view = stack.transpose(0, 1)
+    for a in (1, x):
+        assert torch.equal(cuda_field.linscan(FR, view, a),
+                           cuda_field.linscan_plain(FR, view, a))
+    assert torch.equal(
+        cuda_field.linscan(FR, polys[0], x, reverse=True, exclusive=True),
+        cuda_field.linscan_plain(FR, polys[0], x, reverse=True,
+                                 exclusive=True))

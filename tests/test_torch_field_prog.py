@@ -232,8 +232,10 @@ def test_composite_gates_fit_s_max():
 
 def test_rsa_part_program_shape():
     """The RSA-SHA256 part program: one value a gate poly, permutation rule
-    and lookup rule (333 at this circuit's configuration), one HORNER a
-    value after the first, the y and zh_inv constants, one OUT."""
+    and lookup rule (333 at this circuit's configuration), in 4
+    sub-programs at 2^15 rows (ops/field_prog.py::groups_for), one HORNER a
+    value after each sub-program's first, the y and zh_inv constants, one
+    OUT ending each sub-program."""
     tcs = _circuit_pairs()["rsa_sha256"][1]
     chunks = -(-len(tcs.permutation_columns) // tcs.permutation_chunk_len())
     n_values = (sum(len(g.polys) for g in tcs.gates) + 2 + (chunks - 1)
@@ -242,8 +244,10 @@ def test_rsa_part_program_shape():
     assert len(quotient.part_values(tcs, 1 << 15)) == n_values
     prog = quotient.part_program(tcs, 1 << 15)
     ops = prog.op_counts()
-    assert ops["OUT"] == 1 and prog.code[-1, 0] == fp.OUT
-    assert ops["HORNER"] >= n_values - 1
+    assert prog.groups == fp.groups_for(1 << 15) == 4
+    assert ops["OUT"] == prog.groups
+    assert all(prog.sub_code(g)[-1, 0] == fp.OUT for g in range(4))
+    assert ops["HORNER"] >= n_values - prog.groups
     assert ("y",) in prog.const_keys and ("zh_inv",) in prog.const_keys
     assert prog.slots <= fp.S_MAX
     assert ((prog.code[:, 0] != fp.LOAD)
@@ -283,7 +287,9 @@ def test_part_program_matches_the_per_op_route(name):
 
 def test_composite_part_program_shape():
     """The composite's part program at k=15: one value a gate poly,
-    permutation rule and lookup rule, 5 slots (it fits S_MAX), 8 parts."""
+    permutation rule and lookup rule, 5 slots (it fits S_MAX), 8 parts;
+    10,141 instructions in 4 sub-programs (the 1 / Z_H scale is the
+    combine's, not an instruction)."""
     tcs = _configured(chip_smoke.composite_circuit(), ConstraintSystem)
     assert (tcs.degree(), tcs.permutation_chunk_len()) == (6, 4)
     assert make_domain(15, tcs.degree()).extended_n == 8 << 15
@@ -292,5 +298,109 @@ def test_composite_part_program_shape():
                 + chunks + 5 * len(tcs.lookups))
     assert len(quotient.part_values(tcs, 1 << 15)) == n_values == 500
     prog = quotient.part_program(tcs, 1 << 15)
-    assert (prog.code.shape[0], prog.slots, len(prog.leaf_keys)) == (
-        10143, 5, 849)
+    assert (prog.code.shape[0], prog.slots, len(prog.leaf_keys),
+            prog.groups) == (10141, 5, 849, 4)
+
+
+# -- the split into sub-programs (one warp each on the card) -----------------
+
+def _part_case(name: str):
+    """(ConstraintSystem, random leaves by key, challenges, zh_inv) for a
+    part program at n = N rows."""
+    circuit = {"composite": chip_smoke.composite_circuit,
+               "rsa_sha256": chip_smoke.rsa_circuit}[name]()
+    g = torch.Generator().manual_seed(11)
+    prog, by_key, _, ch, zh_inv, cs, _ = chip_smoke._field_prog_case(
+        circuit, g, N, _NoCard, "cpu")
+    return cs, by_key, ch, zh_inv
+
+
+def _run_part(prog, by_key, ch, zh_inv):
+    consts = FR.encode([quotient.const_value(k, ch, zh_inv)
+                        for k in prog.const_keys], "cpu")
+    return fp.field_prog(FR, prog, [by_key[k] for k in prog.leaf_keys],
+                         consts, N)
+
+
+def _sub_slots(prog, g: int) -> int:
+    """Slots sub-program g touches (its largest slot index + 1)."""
+    code = prog.sub_code(g)
+    used = set(code[:, 1].tolist())
+    for op, _, a, b in code.tolist():
+        if op in (fp.ADD, fp.SUB, fp.MUL):
+            used |= {a, b}
+        elif op in (fp.NEG, fp.SQR, fp.OUT, fp.HORNER):
+            used.add(a)
+    return max(used) + 1
+
+
+@pytest.mark.parametrize("groups", [2, 3, 4, 7])
+@pytest.mark.parametrize("name", ["rsa_sha256", "composite"])
+def test_split_program_matches_one_program(name, groups):
+    """The part program split into G sub-programs, combined by y-powers
+    and scaled, gives the bits of the unsplit program (G = 1) on the same
+    seeded leaves at n = 64 rows."""
+    cs, by_key, ch, zh_inv = _part_case(name)
+    one = quotient.part_program(cs, N, groups=1)
+    split = quotient.part_program(cs, N, groups=groups)
+    assert (one.groups, split.groups) == (1, groups)
+    assert split.op_counts()["OUT"] == groups
+    assert torch.equal(_run_part(split, by_key, ch, zh_inv),
+                       _run_part(one, by_key, ch, zh_inv))
+
+
+@pytest.mark.parametrize("name", ["rsa_sha256", "composite"])
+def test_split_subprograms_fit_s_max(name):
+    """Every sub-program, at G = 1 to G_MAX, stays within S_MAX slots (and
+    within the program's own count), ends in OUT and costs within a third
+    of the others (the balance by instruction cost)."""
+    cs = _configured({"composite": chip_smoke.composite_circuit,
+                      "rsa_sha256": chip_smoke.rsa_circuit}[name](),
+                     ConstraintSystem)
+    for groups in range(1, fp.G_MAX + 1):
+        prog = quotient.part_program(cs, 1 << 15, groups=groups)
+        assert prog.groups == groups and prog.slots <= fp.S_MAX
+        costs = []
+        for g in range(groups):
+            code = prog.sub_code(g)
+            assert code[-1, 0] == fp.OUT and _sub_slots(prog, g) <= prog.slots
+            heavy = np.isin(code[:, 0], [fp.MUL, fp.SQR, fp.HORNER])
+            costs.append(int(heavy.sum()) * quotient.PRODUCT_COST
+                         + int((~heavy).sum()))
+        assert max(costs) <= 1.34 * min(costs), costs
+
+
+def test_combine_constants_are_y_powers():
+    """Sub-program g's result is multiplied by y^(values after run g): the
+    constant ("pow", ("y",), e), none for the last run; the scale is
+    1 / Z_H; const_value gives y^e."""
+    cs = _circuit_pairs()["rsa_sha256"][1]
+    values = quotient.part_values(cs, N)
+    prog = quotient.part_program(cs, N, groups=4)
+    # each run's values: its HORNERs (fold constant y) plus its first
+    y_idx = prog.const_keys.index(("y",))
+    sizes = [1 + int(((prog.sub_code(g)[:, 0] == fp.HORNER)
+                      & (prog.sub_code(g)[:, 3] == y_idx)).sum())
+             for g in range(4)]
+    assert sum(sizes) == len(values)
+    for g in range(4):
+        after = sum(sizes[g + 1:])
+        if g == 3:
+            assert after == 0 and prog.comb[g] == -1
+        else:
+            assert prog.const_keys[prog.comb[g]] == ("pow", ("y",), after)
+    assert prog.const_keys[prog.scale] == ("zh_inv",)
+    ch = {"y": 123456789, "beta": 1, "gamma": 2, "theta": 3}
+    assert quotient.const_value(("pow", ("y",), 17), ch, 5) == pow(
+        123456789, 17, R)
+
+
+def test_groups_for_fills_the_card():
+    """G = round(132 SMs x 32 warps x 32 rows / n) within [1, G_MAX]: 4 at
+    a k=15 part (1,024 blocks of 4 warps, 31 warps an SM)."""
+    assert fp.groups_for(1 << 15) == 4
+    assert fp.groups_for(1 << 16) == 2
+    assert fp.groups_for(1 << 20) == 1
+    assert fp.groups_for(64) == fp.G_MAX == 8
+    assert quotient.part_program(_circuit_pairs()["rsa_sha256"][1],
+                                 1 << 15).groups == 4

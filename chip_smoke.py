@@ -24,20 +24,27 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              the suffix and prefix sums (each against the chain it
              replaces) and 2^20 rows; the NTT's
              forward, inverse, coset and h-chunk entries at n = 2^4-2^10
-             with C = 1, 3, 8 columns and batch-less, and at n = 2^15 with
-             C = 64, 60 and 1 (timed); add / sub / neg over Fr and Fq at
+             with C = 1, 3, 8 columns and batch-less, and (timed) at n =
+             2^15 with C = 64, 60, 34 and 1, 2^10 x 3 and 2^20 x 1; add /
+             sub / neg over Fr and Fq at
              the edge values and broadcast operands, timed at 32,768 and
              2^20 lanes and a 64-column stack plus a per-row operand;
              fold_mixed at the three widths of a k=15 commit,
              fold_dbl_any at 2^20 lanes once and 16 lanes 8 times,
              fold_add at msm()'s and a warm proof's widths, fold_add_tree
              at the warm proof's four tail shapes and msm()'s,
-             fold_horner at both Horner combines, fold_mixed_tiled_rows at
+             fold_horner at both Horner combines (B = 8 x 32 planes x 8
+             doublings and 254 x 1) and at the proofs' lane counts 1, 48,
+             200 and 392, fold_mixed_tiled_rows at
              msm()'s full shape); kernel times as the median, min and max of
              3 rounds timed in turns, plain times, and the bound (the least
-             time the card could take for the same work).  The tree and
-             Horner entries and the one-lane fe_pow are also timed against
-             the chains of launches they replace, and must not be slower;
+             time the card could take for the same work; beside it for
+             fe_pow and fold_horner the latency floor, their critical
+             path of dependent squarings and products at the latency of
+             one, which the mont_chain probe measures at one lane).  The
+             tree and Horner entries and the one-lane fe_pow are also
+             timed against the chains of launches they replace, and must
+             not be slower;
              msm()'s tail also in one tree launch (the route ADD_WAVE is
              held against).
   3. golden  Square k=4, Timestamp k=6, RangeHarness k=7, Identity k=4,
@@ -338,18 +345,77 @@ def _tree_case(g, G: int, W: int, dev):
 
 
 def _horner_case(g, B: int, P: int, times: int, dev):
-    """(partials, mul32) for a fold_horner check: (B, P, 3, 8) random
-    points; lane 0's partials all the identity, lane 1's top 3 planes and
-    every fifth plane.  mul32: every doubling (no branch), and an add for
-    each identity-free partial after a lane's first (the first add, onto
-    the identity, and adds of an identity partial take no product)."""
+    """(partials, mul32, chain) for a fold_horner check: (B, P, 3, 8)
+    random points; lane 1's partials all the identity, lane 2's top 3
+    planes and every fifth plane (lane 0 has none).  mul32: every doubling
+    (no branch), and an add for each identity-free partial after a lane's
+    first (the first add, onto the identity, and adds of an identity
+    partial take no product).  chain: the squarings and products on the
+    longest lane's critical path (pt_dbl: b = Y^2, c or (X + b)^2, e (d -
+    X3); pt_add: Y1 Z2, S1, r^2, r (v - X3))."""
     parts = _rand_points(g, B * P, dev).reshape(B, P, 3, 8)
-    parts[0, :, 2] = 0
-    parts[1, -3:, 2] = 0
-    parts[1, ::5, 2] = 0
+    if B > 1:
+        parts[1, :, 2] = 0
+    if B > 2:
+        parts[2, -3:, 2] = 0
+        parts[2, ::5, 2] = 0
     live = (parts[:, :, 2] != 0).any(dim=-1).sum(dim=1)       # (B,)
     adds = int((live - 1).clamp(min=0).sum())
-    return parts, B * P * times * DBL + adds * ADD
+    most = max(int(live.max()) - 1, 0)
+    chain = {"squarings": P * times * 2 + most, "products": P * times + 3 * most}
+    return parts, B * P * times * DBL + adds * ADD, chain
+
+
+LATENCY_STEPS = 4000
+
+
+class _Latency:
+    """The latency of one dependent Montgomery product and of a squaring on
+    the card, the unit of the latency floors: one lane of the mont_chain
+    probe (cuda_field.mont_chain, over Fq; Fr's code is the same) timed at
+    LATENCY_STEPS // 4 and LATENCY_STEPS // 4 + LATENCY_STEPS steps, the
+    difference over LATENCY_STEPS (the launch cancels); and the rate of
+    independent products at 1,024 lanes an SM, the same way."""
+
+    def __init__(self, card: "Card", dev, g):
+        from halo2tpu_torch.fields.jfield import FQ
+        from halo2tpu_torch.ops.cuda_field import mont_chain, mont_chain_plain
+        x, y = _rand_fe(g, 2, dev), _rand_fe(g, 2, dev)
+        for sq in (False, True):
+            err = _max_abs_err(mont_chain(FQ, x, y, 5, sq),
+                               mont_chain_plain(FQ, x, y, 5, sq))
+            if err:
+                raise AssertionError(f"mont_chain (square={sq}): kernel != "
+                                     f"plain ({err})")
+
+        def per_step_ms(xx, yy, sq, s0, s1):
+            t = [statistics.median(
+                _timed(lambda n=n: mont_chain(FQ, xx, yy, n, sq), 3)[0]
+                for _ in range(3)) for n in (s0, s1)]
+            return (t[1] - t[0]) / (s1 - s0)
+
+        lo = LATENCY_STEPS // 4
+        self.mul_us = per_step_ms(x[:1], y[:1], False, lo,
+                                  lo + LATENCY_STEPS) * 1e3
+        self.sqr_us = per_step_ms(x[:1], y[:1], True, lo,
+                                  lo + LATENCY_STEPS) * 1e3
+        self.rate_lanes = card.sms * 1024
+        xs, ys = _rand_fe(g, self.rate_lanes, dev), _rand_fe(
+            g, self.rate_lanes, dev)
+        self.rate_per_s = self.rate_lanes / (
+            per_step_ms(xs, ys, False, 200, 1000) / 1e3)
+
+    def floor(self, bound: dict, chain: dict) -> dict:
+        """bound (Card.bound's: bytes or operations) with the chain's
+        latency floor beside it: its squarings and products in sequence."""
+        ms = (chain["squarings"] * self.sqr_us
+              + chain["products"] * self.mul_us) / 1e3
+        return {**bound, "latency_floor_ms": ms, "floor_chain": chain}
+
+    def summary(self) -> dict:
+        return {"product_us": self.mul_us, "squaring_us": self.sqr_us,
+                "rate_lanes": self.rate_lanes,
+                "products_per_s": self.rate_per_s}
 
 
 def _rows_case(g, B: int, C: int, card: "Card", dev):
@@ -726,6 +792,15 @@ def phase_kernels(report: dict, card: Card) -> None:
               2000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
               lanes=lanes)
 
+    lat = _Latency(card, dev, g)
+    log(f"kernels: one dependent Montgomery product takes "
+        f"{lat.mul_us:.4f} us, a squaring {lat.sqr_us:.4f} us (one lane of "
+        f"mont_chain, {LATENCY_STEPS} steps beyond the first "
+        f"{LATENCY_STEPS // 4}); independent products "
+        f"{lat.rate_per_s:.4g}/s at {lat.rate_lanes} lanes, "
+        f"{lat.rate_per_s * MUL32_PER_MONT / card.mul32_per_s:.3f} of the "
+        "multiply bound")
+
     # fe_pow (cuda_field.mont_pow), Fr and Fq: exponents 0, 1, 2 and p - 2
     # at 1, 16 and 4,097 lanes (the edge values 0, 1, p - 1 and R mod p
     # first), bitwise against the plain version; timed at one lane with p -
@@ -760,7 +835,9 @@ def phase_kernels(report: dict, card: Card) -> None:
         check("fe_pow", name, lambda s=spec, x=x, e=e:
               cuda_field.mont_pow(s, x, e),
               lambda s=spec, x=x, e=e: cuda_field.mont_pow_plain(s, x, e),
-              200, card.bound(64, sq * MUL32_PER_SQR + mul * MUL32_PER_MONT),
+              200, lat.floor(card.bound(64, sq * MUL32_PER_SQR
+                                        + mul * MUL32_PER_MONT),
+                             {"squarings": sq, "products": 1}),
               lanes=1, squarings=sq, products=mul, chain_launches=sq + mul,
               chain_case=f"{name} chain")
         _chain_case(cases, f"{name} chain",
@@ -834,11 +911,13 @@ def phase_kernels(report: dict, card: Card) -> None:
     # bitwise against the plain Stockham loop and its scales, at every shape
     # the proofs transform: k = 4-10 (the golden circuits) at C = 1, 3 and
     # 8 and the batch-less (n, 8); k = 15 at a stack chunk of 64 columns,
-    # the composite's 60-column tail and one column, also timed (the main
-    # path's shape first: the quotient's coset NTT of 64 columns)
+    # the composite's 60-column tail, RSA's 34 and one column, k = 10 at 3
+    # columns and k = 20 at one, also timed (the main path's shape first:
+    # the quotient's coset NTT of 64 columns)
     ntt_checked = 0
-    for k, C in ([(k, C) for k in (4, 6, 8, 10) for C in (1, 3, 8, None)]
-                 + [(15, 64), (15, 60), (15, 1)]):
+    timed_ntt = [(15, 64), (15, 60), (15, 34), (15, 1), (10, 3), (20, 1)]
+    for k, C in ([(k, C) for k in (4, 6, 8, 10) for C in (1, 3, 8, None)
+                  if (k, C) != (10, 3)] + timed_ntt):
         n = 1 << k
         plan = tntt.get_plan(n, fr_root_of_unity(k), dev)
         a = _rand_fe(g, n * (C or 1), dev).reshape(
@@ -847,7 +926,7 @@ def phase_kernels(report: dict, card: Card) -> None:
         cols = C or 1
         for entry, fn, plain, scales, vec in _ntt_entries(tntt, plan, a, pre,
                                                           post):
-            if k < 15:
+            if (k, C) not in timed_ntt:
                 err = _max_abs_err(fn(), plain())
                 if err:
                     raise AssertionError(f"ntt {entry} n={n} C={C}: kernel "
@@ -856,14 +935,15 @@ def phase_kernels(report: dict, card: Card) -> None:
                 continue
             products = cols * ((n // 2) * k + scales * n)
             nbytes = (2 * n * cols + n // 2 + vec * n + 1) * 32
+            passes = tntt.pass_shapes(k, cols)
             check("ntt", f"ntt {entry} n{n} C{cols}", fn, plain,
-                  20 if cols > 1 else 500,
+                  20 if n * cols >= 1 << 19 else 500,
                   card.bound(nbytes, products * MUL32_PER_MONT), plain_runs=1,
-                  n=n, C=cols, entry=entry,
-                  passes=len(tntt.pass_shapes(k, cols)))
+                  n=n, C=cols, entry=entry, passes=len(passes),
+                  reg_bits=[tntt.reg_bits(p[0], p[1]) for p in passes])
             ntt_checked += 1
     log(f"kernels: ntt bitwise equal to its plain version in {ntt_checked} "
-        "cases (4 entries, 15 shapes)")
+        f"cases (4 entries, {ntt_checked // 4} shapes)")
 
     # field add / sub / neg (cuda_field.add_sub, csrc/field_addsub.cu),
     # Fr and Fq, the edge values 0, 1 and p - 1 first, bitwise against the
@@ -1122,18 +1202,23 @@ def phase_kernels(report: dict, card: Card) -> None:
                                        parts[:, d].contiguous())
         return acc
 
-    for P, times, iters in ((32, 8, 20), (SCALAR_BITS, 1, 10)):
-        parts, mul32 = _horner_case(g, Bm, P, times, dev)
-        name = f"fold_horner B{Bm} P{P} x{times}"
+    for B, P, times, iters in ((Bm, 32, 8, 20), (1, 32, 8, 20),
+                               (48, 32, 8, 20), (200, 32, 8, 20),
+                               (392, 32, 8, 20), (Bm, SCALAR_BITS, 1, 10)):
+        parts, mul32, chain = _horner_case(g, B, P, times, dev)
+        name = f"fold_horner B{B} P{P} x{times}"
+        extra = {"chain_case": f"{name} chain"} if B == Bm else {}
         check("fold_horner", name,
               lambda p=parts, t=times: cuda_ec.fold_horner(p, t),
               lambda p=parts, t=times: cuda_ec.fold_horner_plain(p, t),
-              iters, card.bound((Bm * P + Bm) * POINT_BYTES, mul32),
-              plain_runs=1, lanes=Bm, planes=P, times=times,
-              chain_case=f"{name} chain")
-        _chain_case(cases, f"{name} chain",
-                    lambda p=parts, t=times: chain_horner(p, t),
-                    cuda_ec.fold_horner(parts, times), max(2, iters // 4))
+              iters, lat.floor(card.bound((B * P + B) * POINT_BYTES, mul32),
+                               chain),
+              plain_runs=1, lanes=B, planes=P, times=times, **extra)
+        if B == Bm:
+            _chain_case(cases, f"{name} chain",
+                        lambda p=parts, t=times: chain_horner(p, t),
+                        cuda_ec.fold_horner(parts, times),
+                        max(2, iters // 4))
 
     # fold_mixed_tiled_rows at msm()'s full shape, all 128 rows in one
     # launch, against one plain run of the same rows
@@ -1200,6 +1285,18 @@ def phase_kernels(report: dict, card: Card) -> None:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "ms_min": main["ms_min"],
             "ms_max": main["ms_max"], "cases": rows}
+    for name in ("fe_pow", "fold_horner"):
+        report[name].update(
+            latency_floor_ms=report[name]["cases"][0]["latency_floor_ms"],
+            product_latency=lat.summary())
+    for row in report["fold_horner"]["cases"]:
+        log(f"kernel {row['case']}: latency floor "
+            f"{row['latency_floor_ms']:.4f} ms ({row['floor_chain']}), "
+            f"kernel / floor {row['ms'] / row['latency_floor_ms']:.2f}")
+    for row in report["ntt"]["cases"]:
+        log(f"kernel {row['case']}: kernel / bound "
+            f"{row['ms'] / row['bound_ms']:.2f}, register bits "
+            f"{row['reg_bits']} a pass")
     fp = report["field_prog"]
     if fp["ms"] * FIELD_PROG_OVER_CHAIN > fp["cases"][0]["chain_ms"]:
         raise AssertionError(f"field_prog: {fp['ms']:.4f} ms, more than "
@@ -1292,7 +1389,7 @@ SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
 KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "fe_pow": "mont_pow_kernel",
              "field_prog": "field_prog_kernel",
-             "ntt": "ntt_pass_kernel",
+             "ntt": "ntt_pass_kernel<3>",
              "field_addsub": "field_addsub_kernel",
              "field_linscan": "field_linscan_kernel<false>",
              "fold_mixed": "fold_mixed_kernel",
@@ -1913,6 +2010,14 @@ def main() -> int:
             entry["registers"] = res["registers"]
             entry["spill_bytes"] = res["spill_bytes"]
             entry["sass"] = sass[KERNEL_OF[name]]
+        ntt1 = _build.resources["ntt_pass_kernel<1>"]
+        report["ntt"].update(registers_rb1=ntt1["registers"],
+                             spill_bytes_rb1=ntt1["spill_bytes"])
+        for kernel in ("ntt_pass_kernel<3>", "ntt_pass_kernel<1>",
+                       "fold_horner_kernel", "mont_chain_kernel"):
+            res = _build.resources[kernel]
+            log(f"kernel {kernel}: {res['registers']} registers, "
+                f"{res['spill_bytes']} bytes spilled")
         add = report["fold_add"]
         add.update(_issue_bound(sass, card, add["cases"][0]["lanes"]))
         log(f"kernel fold_add: {add['sass_per_lane']} SASS instructions a "

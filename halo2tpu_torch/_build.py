@@ -30,7 +30,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # the __global__ functions of csrc/, as ptxas names them (mangled)
-KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "field_prog_kernel",
+KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "mont_chain_kernel",
+           "field_prog_kernel",
            "field_addsub_kernel", "field_linscan_kernel", "ntt_pass_kernel",
            "fold_mixed_kernel", "fold_mixed_tiled_kernel",
            "fold_mixed_tiled_rows_kernel", "fold_add_kernel",
@@ -43,6 +44,7 @@ _SIGNATURES = {
     # name: argtypes (pointers, then sizes, then modulus words and stream)
     "h2_mont_mul": [_P, _P, _P, _I64, _P, _P],
     "h2_mont_pow": [_P, _P, _I64, _P, _I32, _P, _P],
+    "h2_mont_chain": [_P, _P, _P, _I64, _I32, _I32, _P, _P],
     "h2_field_prog": [_P, _P, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P],
     "h2_field_addsub": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I32, _P,
                         _P],
@@ -88,7 +90,8 @@ def parse_ptxas(text: str) -> dict:
     "spill_load_bytes", "spill_bytes", "stack_bytes", "smem_bytes",
     "lines"}} for the kernels named in KERNELS (matched by their
     length-prefixed mangled name, e.g. `17fold_mixed_kernel`); a kernel
-    templated on one bool is listed as `name<true>` and `name<false>`."""
+    templated on one bool is listed as `name<true>` and `name<false>`, one
+    templated on one int as `name<3>`."""
     out: dict = {}
     cur = None
     for line in text.splitlines():
@@ -120,13 +123,15 @@ def parse_ptxas(text: str) -> dict:
 
 def _demangle(mangled: str, names) -> str | None:
     """The name of `names` that a mangled symbol holds (its length-prefixed
-    form), with `<true>` / `<false>` for a template on one bool; else
-    None."""
+    form), with `<true>` / `<false>` for a template on one bool and `<n>`
+    for one on an int; else None."""
     name = next((k for k in names if f"{len(k)}{k}" in mangled), None)
     if name is not None:
-        flag = re.search(f"{len(name)}{name}ILb([01])E", mangled)
-        if flag:
-            name += "<true>" if flag.group(1) == "1" else "<false>"
+        flag = re.search(f"{len(name)}{name}IL([bi])([0-9]+)E", mangled)
+        if flag and flag.group(1) == "b":
+            name += "<true>" if flag.group(2) == "1" else "<false>"
+        elif flag:
+            name += f"<{flag.group(2)}>"
     return name
 
 

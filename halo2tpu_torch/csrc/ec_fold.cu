@@ -27,7 +27,7 @@
 //                    one launch;
 //   fold_horner   <- ops/msm.py::_horner_device_w / _horner_device (XLA
 //                    fori_loops of pdbl and padd): the whole Horner combine
-//                    of a batch lane in one thread;
+//                    of a batch lane in one launch, four threads a lane;
 //   fold_dbl_any  <- pallas_ec.py::fold_dbl_any (_dbl_kernel -> _pdbl_lm).
 //
 // Bound on the H100: 32-bit integer multiply throughput, like mont_mul (a
@@ -57,20 +57,26 @@
 // 128 rows at random bits), in ascending row order as the chain did.  The
 // next set row is known one step ahead: its base is gathered into the same
 // two-stage cp.async ring as fold_mixed's.
-// The add, tree and Horner kernels fit 128 registers (4 blocks an SM,
-// 67,584 lanes a wave on 132 SMs) without spills because pt_add takes its
-// Z3 factor before the doubling test and keeps the doubling out of line;
-// they state only their block size: held to 4 blocks an SM as well, ptxas
-// chose 122 registers for the add kernel and a schedule 4% slower.
+// The add and tree kernels fit 128 registers (4 blocks an SM, 67,584 lanes
+// a wave on 132 SMs) without spills because pt_add takes its Z3 factor
+// before the doubling test and keeps the doubling out of line; they state
+// only their block size: held to 4 blocks an SM as well, ptxas chose 122
+// registers for the add kernel and a schedule 4% slower.  The Horner
+// kernel is held to 128 registers too, and fits without spills by keeping
+// the add's early values and its acc in shared memory.
 // The MSM tails and the Horner combines are bound by latency and launches:
 // their rounds have fewer lanes than a wave, and each round was a launch.
 // fold_add_tree loads 256 lanes a block into shared memory and runs the
 // rounds there, one barrier a round, the adds of a round packed onto the
 // lowest threads so that deep rounds of several small groups still fill
 // warps; a tail of width <= 256 is one launch (two up to 65,536).
-// fold_horner keeps each batch lane's accumulator in one thread for all
-// planes: a serial chain of 256 doublings and 32 adds (or 254 and 254) that
-// launches once instead of twice a plane.
+// fold_horner gives each batch lane four threads that keep its accumulator
+// for all planes: a chain of 256 doublings and 32 adds (or 254 and 254)
+// that launches once instead of twice a plane, latency-bound (a proof's
+// 1-392 lanes are under 50 warps).  A step's independent squarings or
+// products run one a thread, each inlined (fe_mul_inline), and come back
+// by warp shuffles, so a doubling waits for 2 squarings and a product, an
+// add for 4 products, as the formulas' critical paths allow.
 #include "field.cuh"
 
 namespace {
@@ -486,21 +492,180 @@ fold_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
   pt_store(out + l * 3 * H2_LIMBS, a);
 }
 
+// fold_horner: kHornerSlots threads a batch lane.  Each keeps acc and the
+// step's operands in registers, and the Montgomery products of a step are
+// spread over the slots: slot s multiplies its operand pair (chosen by
+// selects, no branch), and the slots take back by warp shuffles the
+// products they all need; the add's products that the doublings make early
+// wait in shared memory.  The branches (identity lanes, u1 == u2) depend
+// only on values every slot of the lane holds, so a lane's slots stay
+// together; each lane shuffles and syncs under its own mask.
+constexpr int kHornerSlots = 4;
+constexpr int kHornerThreads = 32;   // eight batch lanes a block
+constexpr int kHornerLanes = kHornerThreads / kHornerSlots;
+// blocks of kHornerThreads an SM must hold: at most 128 registers a thread
+constexpr int kHornerBlocks = 65536 / (128 * kHornerThreads);
+
+__device__ __forceinline__ Fe fe_sel4(int s, const Fe& a0, const Fe& a1,
+                                      const Fe& a2, const Fe& a3) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < H2_LIMBS; i++)
+    r.v[i] = s == 0 ? a0.v[i] : s == 1 ? a1.v[i] : s == 2 ? a2.v[i] : a3.v[i];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_shfl(const Fe& a, unsigned mask, int src) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < H2_LIMBS; i++) r.v[i] = __shfl_sync(mask, a.v[i], src);
+  return r;
+}
+
+struct Step {
+  unsigned mask;   // the lane's slots
+  int lead;        // its slot 0's lane of the warp
+  int slot;
+};
+
+// One step of a lane: slot s < N computes a_s * b_s (kSquare: a_s^2, b_s
+// unread); the products of slots 0 .. NB-1 reach every slot (r0 .. r3),
+// and each slot returns its own.  Slots from N on compute a copy of slot
+// 0's.  A step is all squarings or all products, so the slots of a warp
+// never diverge.
+template <int N, int NB, bool kSquare = false>
+__device__ __forceinline__ Fe group_mul(const Step& g, const Modulus& M,
+                                        Fe& r0, Fe& r1, Fe& r2, Fe& r3,
+                                        const Fe& a0, const Fe& b0,
+                                        const Fe& a1, const Fe& b1,
+                                        const Fe& a2, const Fe& b2,
+                                        const Fe& a3, const Fe& b3) {
+  const int s = g.slot < N ? g.slot : 0;
+  const Fe a = fe_sel4(s, a0, a1, a2, a3);
+  const Fe p = kSquare ? fe_sqr(a, M)
+                       : fe_mul_inline(a, fe_sel4(s, b0, b1, b2, b3), M);
+  r0 = fe_shfl(p, g.mask, g.lead);
+  if (NB > 1) r1 = fe_shfl(p, g.mask, g.lead + 1);
+  if (NB > 2) r2 = fe_shfl(p, g.mask, g.lead + 2);
+  if (NB > 3) r3 = fe_shfl(p, g.mask, g.lead + 3);
+  return p;
+}
+
+// Values kept a batch lane in shared memory: the add's values the
+// doublings make, and acc for the add's rare doubling branch (so that
+// neither stays in registers across the steps between)
+enum { kZ2Z2, kZ1Z1, kY2Z1, kZZ, kX1, kY1, kZ1, kKept };
+
 // Horner combine of batch lane b over partials (B, planes, 3, 8): from the
-// identity, top plane down, `times` doublings then acc + partials[b, d].
-__global__ void __launch_bounds__(kThreads)
+// identity, top plane down, `times` doublings (pt_dbl) then acc +
+// partials[b, d] (pt_add), with pt_dbl's and pt_add's values, in steps of
+// at most four independent squarings (S) or products (M) on slots 0-3 ([..]
+// kept only in the first or last doubling of a plane):
+//   D1 S  a = X^2, b = Y^2, Z^2, [first: Z2Z2 = Z2^2]
+//   D2 S  c = b^2, (X + b)^2, f = (3a)^2, (Y + Z)^2
+//   D3 M  e (d - X3), [last: Z1Z1 = Z3 Z3, Y2 Z3, (Z3 + Z2)(Z3 + Z2)]
+//   A1 M  U1 = X1 Z2Z2, Y1 Z2, U2 = X2 Z1Z1, S2 = Y2Z1 Z1Z1
+//   A2 M  i = (2H)(2H), S1 = Y1Z2 Z2Z2, Z3 = (..) H  (then the u1 == u2 test)
+//   A3 M  j = H i, v = U1 i, r r
+//   A4 M  r (v - X3), S1 j
+// pt_dbl's Z3 = 2Y Z is taken as (Y + Z)^2 - Y^2 - Z^2, so that D1 and D2
+// are squarings only (a squaring's latency is about 0.7 of a product's);
+// every value is the canonical one pt_dbl and pt_add compute, so the bits
+// are theirs.  The critical path is theirs too: 2 squarings and a product
+// a doubling, 4 products an add.  tests/test_torch_ec_tree.py writes the
+// schedule out in torch.
+__global__ void __launch_bounds__(kHornerThreads, kHornerBlocks)
 fold_horner_kernel(const uint32_t* __restrict__ partials,
                    uint32_t* __restrict__ out, int B, int planes, int times,
                    const __grid_constant__ Modulus M) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ uint4 kept[kKept * 2][kHornerLanes];
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / kHornerSlots;
   if (b >= B) return;
+  const int lb = threadIdx.x / kHornerSlots;
+  Step g;
+  g.slot = threadIdx.x % kHornerSlots;
+  g.lead = (threadIdx.x % 32) - g.slot;
+  g.mask = ((1u << kHornerSlots) - 1) << g.lead;
+  auto keep = [&](int k, const Fe& v) {
+    fe_put(&kept[2 * k][0], kHornerLanes, lb, v);
+  };
+  auto kept_fe = [&](int k) {
+    return fe_get(&kept[2 * k][0], kHornerLanes, lb);
+  };
   const uint32_t* part = partials + (long long)b * planes * 3 * H2_LIMBS;
   Pt acc = pt_identity(M);
+  Fe unused;
   for (int d = planes - 1; d >= 0; d--) {
-    for (int i = 0; i < times; i++) acc = pt_dbl(acc, M);
-    acc = pt_add(acc, pt_load(part + d * 3 * H2_LIMBS), M);
+    const uint32_t* q = part + d * 3 * H2_LIMBS;
+    auto z2 = [&]() { return fe_load(q + 2 * H2_LIMBS); };
+    for (int i = 0; i < times; i++) {
+      Fe a, bb, zsq;
+      const Fe z2i = z2();
+      Fe p = group_mul<4, 3, true>(g, M, a, bb, zsq, unused, acc.x, acc.x,
+                                   acc.y, acc.y, acc.z, acc.z, z2i, z2i);
+      if (i == 0 && g.slot == 3) keep(kZ2Z2, p);
+      const Fe xb = fe_add(acc.x, bb, M);
+      const Fe e = fe_add(fe_dbl(a, M), a, M);
+      const Fe yz = fe_add(acc.y, acc.z, M);
+      Fe c, xb2, f, w;
+      group_mul<4, 4, true>(g, M, c, xb2, f, w, bb, bb, xb, xb, e, e, yz,
+                            yz);
+      const Fe dd = fe_dbl(fe_sub(xb2, fe_add(a, c, M), M), M);
+      const Fe x3 = fe_sub(f, fe_dbl(dd, M), M);
+      const Fe c8 = fe_dbl(fe_dbl(fe_dbl(c, M), M), M);
+      const Fe z3 = fe_sub(fe_sub(w, bb, M), zsq, M);
+      const Fe z3z2 = fe_add(z3, z2(), M);
+      Fe edx;
+      p = group_mul<4, 1>(g, M, edx, unused, unused, unused, e,
+                          fe_sub(dd, x3, M), z3, z3, fe_load(q + H2_LIMBS),
+                          z3, z3z2, z3z2);
+      if (i == times - 1 && g.slot > 0) keep(kZ2Z2 + g.slot, p);
+      acc.x = x3;
+      acc.y = fe_sub(edx, c8, M);
+      acc.z = z3;
+    }
+    if (fe_is_zero(acc.z)) {
+      acc = pt_load(q);
+      continue;
+    }
+    if (fe_is_zero(z2())) continue;
+    if (g.slot == 0) {
+      keep(kX1, acc.x);
+      keep(kY1, acc.y);
+      keep(kZ1, acc.z);
+    }
+    __syncwarp(g.mask);
+    const Fe z2z2 = kept_fe(kZ2Z2), z1z1 = kept_fe(kZ1Z1);
+    Fe u1, y1z2, u2, s2;
+    group_mul<4, 4>(g, M, u1, y1z2, u2, s2, acc.x, z2z2, acc.y, z2(),
+                    fe_load(q), z1z1, kept_fe(kY2Z1), z1z1);
+    const Fe zw = fe_sub(fe_sub(kept_fe(kZZ), z1z1, M), z2z2, M);
+    const Fe h = fe_sub(u2, u1, M);
+    const Fe hh = fe_dbl(h, M);
+    Fe ii, s1, oz;
+    group_mul<3, 3>(g, M, ii, s1, oz, unused, hh, hh, y1z2, z2z2, zw, h, zw,
+                    zw);
+    if (fe_eq(u1, u2)) {
+      Pt p1;
+      p1.x = kept_fe(kX1);
+      p1.y = kept_fe(kY1);
+      p1.z = kept_fe(kZ1);
+      acc = fe_eq(s1, s2) ? pt_dbl_call(p1, M) : pt_identity(M);
+      continue;
+    }
+    const Fe rr = fe_dbl(fe_sub(s2, s1, M), M);
+    Fe j, v, r2;
+    group_mul<3, 3>(g, M, j, v, r2, unused, h, ii, u1, ii, rr, rr, rr, rr);
+    const Fe ox = fe_sub(fe_sub(r2, j, M), fe_dbl(v, M), M);
+    Fe rvx, s1j;
+    const Fe vx = fe_sub(v, ox, M);
+    group_mul<2, 2>(g, M, rvx, s1j, unused, unused, rr, vx, s1, j, rr, vx,
+                    rr, vx);
+    acc.x = ox;
+    acc.y = fe_sub(rvx, fe_dbl(s1j, M), M);
+    acc.z = oz;
   }
-  pt_store(out + (long long)b * 3 * H2_LIMBS, acc);
+  if (g.slot == 0) pt_store(out + (long long)b * 3 * H2_LIMBS, acc);
 }
 
 unsigned blocks_for(long long lanes) {
@@ -573,7 +738,10 @@ extern "C" int h2_fold_horner(const void* partials, void* out, int B,
                               int planes, int times, const uint32_t* mod,
                               void* stream) {
   if (B > 0) {
-    fold_horner_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+    const long long threads = (long long)B * kHornerSlots;
+    fold_horner_kernel<<<(unsigned)((threads + kHornerThreads - 1) /
+                                    kHornerThreads),
+                         kHornerThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)partials, (uint32_t*)out, B, planes, times,
         modulus_from_words(mod));
   }

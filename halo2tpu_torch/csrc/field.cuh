@@ -221,13 +221,15 @@ __device__ __forceinline__ void mac_row_carry(uint32_t t[9],
 // Inputs canonical (< p < 2^254): before each round t < 2p, after adding
 // a * b_i and m * p it is below 2p * 2^32 + 2^286 < 2^288 (nine words), and
 // after the shift below 2p again, so one final subtraction suffices.
-// Not inlined: a point formula calls it 7 to 11 times, and a copy of its
-// ~600 instructions at every call site made the point kernels' code larger
-// than the instruction cache (fold_mixed's ran slower inlined).  M should
-// be a __grid_constant__ kernel parameter, so that passing its address
-// copies nothing to local memory.
-static __device__ __noinline__ Fe fe_mul(const Fe a, const Fe b,
-                                         const Modulus& M) {
+// fe_mul is one out-of-line copy of it: a point formula calls it 7 to 11
+// times, and a copy of its ~600 instructions at every call site made the
+// point kernels' code larger than the instruction cache (fold_mixed's ran
+// slower inlined).  fe_mul_inline is the body, for a kernel with few call
+// sites on a latency-bound path (fold_horner's group steps: no call, no
+// argument moves).  M should be a __grid_constant__ kernel parameter, so
+// that passing its address copies nothing to local memory.
+__device__ __forceinline__ Fe fe_mul_inline(const Fe& a, const Fe& b,
+                                            const Modulus& M) {
   uint32_t t[H2_LIMBS + 1];
 #pragma unroll
   for (int i = 0; i < H2_LIMBS + 1; i++) t[i] = 0;
@@ -243,6 +245,11 @@ static __device__ __noinline__ Fe fe_mul(const Fe a, const Fe b,
 #pragma unroll
   for (int i = 0; i < H2_LIMBS; i++) r.v[i] = t[i];
   return fe_reduce_once(r, 0, M);
+}
+
+static __device__ __noinline__ Fe fe_mul(const Fe a, const Fe b,
+                                         const Modulus& M) {
+  return fe_mul_inline(a, b, M);
 }
 
 // a * a * 2^-256 mod p, canonical output.  The 16-word square w is built

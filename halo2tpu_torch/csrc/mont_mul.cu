@@ -68,6 +68,28 @@ __global__ void mont_pow_kernel(const uint32_t* __restrict__ a,
   }
 }
 
+// Each lane: `steps` dependent products x = x * y, or squarings x = x^2.
+// Not a kernel of any path: its time over two step counts at one lane gives
+// the latency of one dependent product or squaring on the card (the unit
+// of the latency floors of fe_pow and fold_horner), and at many lanes the
+// product rate the card sustains (chip_smoke.py).
+__global__ void mont_chain_kernel(const uint32_t* __restrict__ x,
+                                  const uint32_t* __restrict__ y,
+                                  uint32_t* __restrict__ out, long long n,
+                                  int steps, int square,
+                                  const __grid_constant__ Modulus M) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe a = fe_load(x + i * H2_LIMBS);
+  const Fe b = fe_load(y + i * H2_LIMBS);
+  if (square) {
+    for (int k = 0; k < steps; k++) a = fe_sqr(a, M);
+  } else {
+    for (int k = 0; k < steps; k++) a = fe_mul(a, b, M);
+  }
+  fe_store(out + i * H2_LIMBS, a);
+}
+
 long long grid_for(long long n, int threads) {
   long long blocks = (n + threads - 1) / threads;
   return blocks > 65535LL * 32 ? 65535LL * 32 : blocks;
@@ -106,6 +128,22 @@ extern "C" int h2_mont_pow(const void* a, void* out, long long n,
     mont_pow_kernel<<<(unsigned)grid_for(n, threads), threads, 0,
                       (cudaStream_t)stream>>>((const uint32_t*)a,
                                               (uint32_t*)out, n, E, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out = x * y^steps * 2^(-256 steps), or x^(2^steps) in Montgomery form
+// (square != 0), lanewise over n lanes, one thread a lane.  Returns
+// cudaGetLastError().
+extern "C" int h2_mont_chain(const void* x, const void* y, void* out,
+                             long long n, int steps, int square,
+                             const uint32_t* mod, void* stream) {
+  const int threads = 128;
+  if (n > 0) {
+    mont_chain_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n, steps,
+        square, modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }

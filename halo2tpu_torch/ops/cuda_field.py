@@ -188,6 +188,36 @@ mont_pow.launches = 0
 mont_pow.shapes = Counter()
 
 
+def mont_chain_plain(spec, x, y, steps: int, square: bool = False):
+    """mont_chain in plain torch: `steps` dependent mont_mul_plain."""
+    for _ in range(steps):
+        x = mont_mul_plain(spec, x, x if square else y)
+    return x
+
+
+def mont_chain(spec, x, y, steps: int, square: bool = False):
+    """Lanewise x * y * ... * y (`steps` dependent Montgomery products), or
+    x squared `steps` times, over (L, 8) int32 limbs: on CUDA tensors one
+    thread a lane of the mont_chain kernel, a probe that no path launches
+    (its one-lane time is the unit of the latency floors in
+    chip_smoke.py); on CPU tensors the plain chain."""
+    if x.dim() != 2 or x.shape[1] != NLIMB or y.shape != x.shape or (
+            x.dtype != torch.int32):
+        raise ValueError(f"mont_chain: expected two (L, 8) int32 stacks, "
+                         f"got {tuple(x.shape)}, {tuple(y.shape)}")
+    if x.device.type == "cpu":
+        return mont_chain_plain(spec, x, y, steps, square)
+    from .._build import check, lib
+    x, y = x.contiguous(), y.to(x.device).contiguous()
+    out = torch.empty_like(x)
+    check(lib().h2_mont_chain(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                              x.shape[0], steps, int(square),
+                              spec.mod_words_ptr,
+                              torch.cuda.current_stream(x.device).cuda_stream),
+          "mont_chain")
+    return out
+
+
 # -- add / sub / neg ---------------------------------------------------------
 
 def u64(x: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,14 @@ from ..fields.bn254 import R, inv_mod
 from ..fields.jfield import (FR, NLIMB, add, device_of, ints_to_limbs,
                              mont_mul, sub)
 
-# a kernel pass transforms lines of at most 2^NTT_MAX_LOG_L points in
-# shared memory
+# a kernel pass transforms lines of at most 2^NTT_MAX_LOG_L points; a block
+# holds at most NTT_BLOCK_ELEMS elements of whole lines, a thread 2^3 of
+# them in registers in a pass of at least NTT_WIDE_ELEMS elements, else 2^1
+# (csrc/ntt.cu)
 NTT_MAX_LOG_L = 10
+NTT_BLOCK_ELEMS = 1024
+NTT_WIDE_ELEMS = 1 << 19
+NTT_MIN_BLOCKS = 264
 
 
 class NTTPlan:
@@ -60,7 +65,14 @@ def get_plan(n: int, omega: int, device="cuda") -> NTTPlan:
 
 
 def _inverse_plan(plan_fwd: NTTPlan) -> NTTPlan:
-    return get_plan(plan_fwd.n, inv_mod(plan_fwd.omega, R), plan_fwd.device)
+    """The inverse-omega plan, kept on the forward plan after the first
+    call (an inverse of one column is a few tens of microseconds)."""
+    inv = getattr(plan_fwd, "_inverse", None)
+    if inv is None:
+        inv = get_plan(plan_fwd.n, inv_mod(plan_fwd.omega, R),
+                       plan_fwd.device)
+        plan_fwd._inverse = inv
+    return inv
 
 
 def _ntt_run(plan: NTTPlan, a):
@@ -129,6 +141,28 @@ def pass_shapes(logn: int, C: int) -> list:
     l1 = (logn + 1) // 2
     l2 = logn - l1
     return [(l1, C << l2, C, True), (l2, C << l1, C << l1, False)]
+
+
+def reg_bits(log_l: int, lines: int) -> int:
+    """log2 of the elements a thread of the kernel's pass holds
+    (csrc/ntt.cu::h2_ntt_pass): 3 from NTT_WIDE_ELEMS elements on, else
+    1."""
+    return 3 if lines << log_l >= NTT_WIDE_ELEMS else 1
+
+
+def lines_per_block(log_l: int, lines: int, rb: int | None = None) -> int:
+    """log2 of the lines a block of the kernel's pass takes
+    (csrc/ntt.cu::h2_ntt_pass): as many as fill NTT_BLOCK_ELEMS, fewer
+    while the grid would have under NTT_MIN_BLOCKS blocks, but at least
+    one thread's 2^rb elements (rb: reg_bits unless given)."""
+    log_lpb = 0
+    while (2 << (log_l + log_lpb)) <= NTT_BLOCK_ELEMS:
+        log_lpb += 1
+    while log_lpb > 0 and -(-lines >> log_lpb) < NTT_MIN_BLOCKS:
+        log_lpb -= 1
+    if rb is None:
+        rb = reg_bits(log_l, lines)
+    return max(log_lpb, rb - log_l)
 
 
 def ntt_kernel(plan: NTTPlan, a, pre=None, post=None, scale=None):

@@ -15,14 +15,18 @@ more warm proof under torch.profiler.  Prints one JSON line: the card's
 name and power limit, the warm proof seconds and every phase's seconds of
 each warm proof, the launches of each kernel wrapper the tree counts (per
 warm proof) with mont_mul's lane histogram, and from the profiled proof
-the CUDA kernels the card ran (the tree's own and torch's), the device
-busy share, and the sha256 of the proof bytes (the proof must verify).
+the CUDA kernels the card ran (the tree's own and torch's; the count and
+device ms of each of the tree's own kernels by name), the device busy
+share, and the sha256 of the proof bytes (the proof must verify).
 Without CUDA it exits non-zero.
 
 With --kernels it times, instead of a proof, the calls whose kernels a
 tree may have changed, at a k=15 proof's shapes, through the tree's own
-entry points (so that a commit and its parent compare in one run):
-field_prog on the RSA-SHA256 and the composite part programs at 2^15 rows
+entry points (so that a commit and its parent compare in one run): the
+NTT's coset and h-chunk entries at 2^15 rows x 64, 34 and 1 columns,
+fold_horner at 1, 48, 200 and 392 lanes x 32 planes x 8 doublings and 8 x
+254 x 1, field_prog on the RSA-SHA256 and the composite part programs at
+2^15 rows
 (the tree's part_program, random leaves and challenges), add and mont_mul
 at 32,768 lanes, and the engine's div_linear (2^15 rows), eval_polys (16
 polys of 2^15 rows at one point) and weighted_sum (64 vectors of 2^15
@@ -38,6 +42,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -62,10 +67,12 @@ def _union_us(spans) -> float:
     return total
 
 
-def busy_from_trace(events) -> dict:
+def busy_from_trace(events, names=()) -> dict:
     """Chrome-trace events of one profiled call (marked MARK) -> the CUDA
-    kernels that ran in it, their device time, and the share of the call's
-    wall time in which the device ran a kernel, a copy or a memset."""
+    kernels that ran in it, their device time, the share of the call's
+    wall time in which the device ran a kernel, a copy or a memset, and
+    for each of `names` (the port's __global__ functions) its kernels'
+    count and summed device ms."""
     mark = next(e for e in events if e.get("name") == MARK
                 and e.get("cat") == "user_annotation")
     t0, t1 = mark["ts"], mark["ts"] + mark["dur"]
@@ -75,7 +82,14 @@ def busy_from_trace(events) -> dict:
     spans = [(max(e["ts"], t0), min(e["ts"] + e.get("dur", 0), t1))
              for e in gpu]
     busy = _union_us(spans)
-    return {"cuda_kernels": len(kernels),
+    by_name = {}
+    for k in names:
+        mine = [e for e in kernels
+                if re.search(rf"\b{k}\b", e.get("name", ""))]
+        if mine:
+            by_name[k] = {"kernels": len(mine), "ms": sum(
+                e.get("dur", 0) for e in mine) / 1e3}
+    return {"cuda_kernels": len(kernels), "kernels_by_name": by_name,
             "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
             "device_busy_ms": busy / 1e3, "window_ms": (t1 - t0) / 1e3,
             "busy_share": busy / (t1 - t0)}
@@ -87,6 +101,7 @@ def profile_run(fn, workdir: str):
     trace file is written under workdir and removed."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    from halo2tpu_torch._build import KERNELS
     os.makedirs(workdir, exist_ok=True)
     path = os.path.join(workdir, f"trace_{os.getpid()}.json")
     with profile(activities=[ProfilerActivity.CPU,
@@ -101,7 +116,7 @@ def profile_run(fn, workdir: str):
     finally:
         os.remove(path)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    return out, busy_from_trace(events)
+    return out, busy_from_trace(events, KERNELS)
 
 
 def _wrappers() -> dict:
@@ -205,6 +220,24 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
                     **out.get(f"field_prog_{case}_part_ms_by_groups", {}),
                     G: _median_event_ms(
                         lambda: field_prog(jfield.FR, p, x, c, n), 10)}
+    from halo2tpu_torch.fields.bn254 import fr_root_of_unity
+    from halo2tpu_torch.ops import cuda_ec, ntt as tntt
+    k = n.bit_length() - 1
+    plan = tntt.get_plan(n, fr_root_of_unity(k), dev)
+    pre = chip_smoke._rand_fe(g, n, dev)
+    for C in (64, 34, 1):
+        a = chip_smoke._rand_fe(g, n * C, dev).reshape(n, C, 8)
+        iters = 20 if C > 1 else 200
+        out[f"ntt_coset_{n}x{C}_ms"] = _median_event_ms(
+            lambda: tntt.ntt(plan, a, pre=pre), iters)
+        out[f"ntt_inverse_{n}x{C}_ms"] = _median_event_ms(
+            lambda: tntt.intt(plan, a, post=pre), iters)
+    for B, planes, times in ((1, 32, 8), (48, 32, 8), (200, 32, 8),
+                             (392, 32, 8), (8, 254, 1)):
+        parts = chip_smoke._rand_points(g, B * planes, dev).reshape(
+            B, planes, 3, 8)
+        out[f"fold_horner_B{B}_P{planes}_x{times}_ms"] = _median_event_ms(
+            lambda: cuda_ec.fold_horner(parts, times), 5)
     x, y = chip_smoke._rand_fe(g, n, dev), chip_smoke._rand_fe(g, n, dev)
     out[f"add_L{n}_ms"] = _median_event_ms(
         lambda: cuda_field.add(jfield.FR, x, y), 2000)

@@ -151,13 +151,24 @@ ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0b_ec_fold_cu_17fold_
 ptxas info    : Function properties for _ZN46_GLOBAL__N__0b_ec_fold_cu_17fold_mixed_kernelEPKjPjS1_S1_xiixii7Modulus
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 123 registers, used 0 barriers, 24576 bytes smem, 504 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__c7_6_ntt_cu_58ff407715ntt_pass_kernelILi3EEEvNS_7NttPassE7Modulus' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__c7_6_ntt_cu_58ff407715ntt_pass_kernelILi3EEEvNS_7NttPassE7Modulus
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__c7_6_ntt_cu_58ff407715ntt_pass_kernelILi1EEEvNS_7NttPassE7Modulus' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__c7_6_ntt_cu_58ff407715ntt_pass_kernelILi1EEEvNS_7NttPassE7Modulus
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 76 registers, used 1 barriers
 """
 
 
 def test_parse_ptxas():
     res = _build.parse_ptxas(PTXAS)
     assert sorted(res) == ["fold_mixed_kernel", "fold_mixed_tiled_kernel",
-                           "mont_mul_kernel<true>"]
+                           "mont_mul_kernel<true>", "ntt_pass_kernel<1>",
+                           "ntt_pass_kernel<3>"]
+    assert [res[f"ntt_pass_kernel<{rb}>"]["registers"] for rb in (3, 1)] == [
+        128, 76]
     fm = res["fold_mixed_kernel"]
     assert (fm["registers"], fm["spill_bytes"], fm["smem_bytes"]) == (
         123, 0, 24576)

@@ -99,6 +99,23 @@ def _run_both(dev, prog, n, seed, stride_cols=3):
     return got, field_prog.field_prog_plain(FR, prog, leaves, consts, n)
 
 
+@pytest.mark.parametrize("square", [False, True])
+def test_mont_chain_probe_matches_plain(dev, square):
+    """The latency probe: 7 dependent products (squarings) a lane, at 1 and
+    300 lanes, against the plain chain and Python integers."""
+    rng = np.random.default_rng(11)
+    xs = [int(v) for v in rng.integers(1, 1 << 62, 300)]
+    ys = [int(v) for v in rng.integers(1, 1 << 62, 300)]
+    x, y = FQ.encode(xs, dev), FQ.encode(ys, dev)
+    for L in (1, 300):
+        got = cuda_field.mont_chain(FQ, x[:L], y[:L], 7, square)
+        assert torch.equal(got, cuda_field.mont_chain_plain(
+            FQ, x[:L], y[:L], 7, square))
+    want = [pow(a, 1 << 7, Q) if square else a * pow(b, 7, Q) % Q
+            for a, b in zip(xs, ys)]
+    assert got.cpu().equal(FQ.encode(want, "cpu"))
+
+
 @pytest.mark.parametrize("n", [1, 200, 1000])
 def test_field_prog_kernel_matches_plain(dev, n):
     """A part program with permutation and lookup rules (the RangeHarness
@@ -333,18 +350,36 @@ def test_fold_add_tree_matches_plain(dev, G, width):
             cuda_ec.fold_add.launches - before[1]) == (trees, lanewise)
 
 
-@pytest.mark.parametrize("times,planes", [(8, 32), (1, 254)])
-def test_fold_horner_matches_plain(dev, times, planes):
-    """B = 3: lane 0's partials all the identity, lane 1's top planes and
-    every fifth plane the identity."""
-    parts = _rand_points(3 * planes, 30 + times, dev).reshape(3, planes, 3, 8)
+@pytest.mark.parametrize("B,times,planes", [
+    (3, 8, 32), (3, 1, 254), (1, 8, 32), (48, 8, 32), (200, 8, 32),
+    (392, 8, 32), (8, 1, 254)])
+def test_fold_horner_matches_plain(dev, B, times, planes):
+    """At the proofs' lane counts (1-392) and msm()'s B = 8.  Lane 0's
+    partials all the identity; lane 1's top planes and every fifth plane
+    the identity; where B >= 3, lane 2 holds curve points with only planes
+    1 and 0 set, plane 0 = 2^times * plane 1 (the add doubles), and where B
+    >= 8 lane 3 the same with plane 0 negated (the add gives the
+    identity)."""
+    parts = _rand_points(B * planes, 30 + times + B, dev).reshape(
+        B, planes, 3, 8)
     parts[0, :, 2] = 0
-    parts[1, -3:, 2] = 0
-    parts[1, ::5, 2] = 0
+    if B > 1:
+        parts[1, -3:, 2] = 0
+        parts[1, ::5, 2] = 0
+    for lane, sign in ((2, 1), (3, -1)):
+        if lane >= B or (lane == 3 and B < 8):
+            continue
+        p1 = G1.scalar_mul(G1_GEN, 1000 + lane)
+        p0 = G1.scalar_mul(p1, 1 << times)
+        pts = [None] * planes
+        pts[1], pts[0] = p1, p0 if sign > 0 else G1.neg(p0)
+        parts[lane] = affine_to_device(pts, dev)
     before = cuda_ec.fold_horner.launches
     got = cuda_ec.fold_horner(parts, times)
     assert cuda_ec.fold_horner.launches == before + 1
     assert torch.equal(got, cuda_ec.fold_horner_plain(parts, times))
+    if B >= 8:
+        assert int(got[3, 2].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("C,n,nbits,r0,r1", [(8, 64, 254, 0, 8),
@@ -407,7 +442,8 @@ def _rand_stack(rng, shape, p=R):
 
 @pytest.mark.parametrize("k,C", [(k, C) for k in (4, 6, 8, 10)
                                  for C in (1, 3, 8, None)]
-                         + [(15, 64), (15, 60), (15, 1), (11, 3), (1, 2)])
+                         + [(15, 64), (15, 60), (15, 34), (15, 1), (11, 3),
+                            (1, 2), (20, 1)])
 def test_ntt_kernel_matches_plain(dev, k, C):
     """Forward, inverse, coset (pre-scale) and h-chunk (post-scale) entries
     bitwise equal to the plain versions on the same inputs (C None: the

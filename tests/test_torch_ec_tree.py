@@ -5,18 +5,22 @@ row steps).  Each against the chain of entries it replaces, against
 halo2tpu (its jpoint.padd halving chain; its host Horner routes) and host
 G1 arithmetic, with identity, doubling and inverse lanes.  Exact
 equality."""
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from halo2tpu.curves import g1 as G1
 from halo2tpu.curves.jpoint import affine_to_device as jax_affine
+from halo2tpu.curves.jpoint import identity_points as jax_identity
 from halo2tpu.curves.jpoint import padd as jax_padd
+from halo2tpu.curves.jpoint import pdbl as jax_pdbl
 from halo2tpu.fields.bn254 import G1_GEN, R
 from halo2tpu.ops import msm as jmsm
 from halo2tpu_torch import convert
+from halo2tpu_torch.curves import jpoint as tjp
 from halo2tpu_torch.curves.jpoint import affine_to_device, device_to_affine
+from halo2tpu_torch.fields import jfield as tjf
 from halo2tpu_torch.fields.jfield import ints_to_limbs
 from halo2tpu_torch.ops import cuda_ec
 from halo2tpu_torch.ops import msm as tmsm
@@ -132,6 +136,173 @@ def test_fold_horner_refuses_bad_shapes():
         cuda_ec.fold_horner(torch.zeros((2, 3, 8), dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="times"):
         cuda_ec.fold_horner(torch.zeros((2, 4, 3, 8), dtype=torch.int32), 0)
+
+
+# -- fold_horner's schedule (csrc/ec_fold.cu::fold_horner_kernel) ----------
+# Each step is one group_mul of the kernel: its kind, "S" (fe_sqr on every
+# slot: operand pairs (a, a)) or "M" (fe_mul), and the values of a batch
+# lane slot by slot (slot s = the s-th entry runs on the lane's s-th
+# thread), as (value, operand, operand); every operand was computed before
+# the step.  The linear steps between them are _horner_linear's.
+HORNER_SLOTS = 4
+HORNER_DBL = (
+    ("D1", "S", (("a", "X", "X"), ("b", "Y", "Y"), ("zsq", "Z", "Z"),
+                 ("z2z2", "Z2", "Z2"))),
+    ("D2", "S", (("c", "b", "b"), ("xb2", "xb", "xb"), ("f", "e", "e"),
+                 ("w", "Y+Z", "Y+Z"))),
+    ("D3", "M", (("edx", "e", "d-x3"), ("z1z1", "z3", "z3"),
+                 ("y2z1", "Y2", "z3"), ("zz", "z3+Z2", "z3+Z2"))),
+)
+HORNER_ADD = (
+    ("A1", "M", (("u1", "X", "z2z2"), ("y1z2", "Y", "Z2"),
+                 ("u2", "X2", "z1z1"), ("s2", "y2z1", "z1z1"))),
+    ("A2", "M", (("i", "hh", "hh"), ("s1", "y1z2", "z2z2"),
+                 ("oz", "zw", "h"))),
+    ("A3", "M", (("j", "h", "i"), ("v", "u1", "i"), ("r2", "rr", "rr"))),
+    ("A4", "M", (("rvx", "rr", "v-ox"), ("s1j", "s1", "j"))),
+)
+
+
+def _horner_linear(env: dict, step: str) -> None:
+    """The adds and subtractions mod q the kernel runs after a step.
+    pt_dbl's Z3 = 2 Y Z is (Y + Z)^2 - Y^2 - Z^2 here, its value."""
+    def add(a, b):
+        return tjf.add(tjf.FQ, a, b)
+
+    def sub(a, b):
+        return tjf.sub(tjf.FQ, a, b)
+
+    def dbl(a):
+        return add(a, a)
+
+    v = env.get
+    if step == "D1":
+        env["xb"] = add(v("X"), v("b"))
+        env["e"] = add(dbl(v("a")), v("a"))
+        env["Y+Z"] = add(v("Y"), v("Z"))
+    elif step == "D2":
+        env["d"] = dbl(sub(v("xb2"), add(v("a"), v("c"))))
+        env["x3"] = sub(v("f"), dbl(v("d")))
+        env["c8"] = dbl(dbl(dbl(v("c"))))
+        env["d-x3"] = sub(v("d"), v("x3"))
+        env["z3"] = sub(sub(v("w"), v("b")), v("zsq"))
+        env["z3+Z2"] = add(v("z3"), v("Z2"))
+    elif step == "D3":
+        env["X"], env["Y"], env["Z"] = (v("x3"), sub(v("edx"), v("c8")),
+                                        v("z3"))
+    elif step == "A1":
+        env["zw"] = sub(sub(v("zz"), v("z1z1")), v("z2z2"))
+        env["h"] = sub(v("u2"), v("u1"))
+        env["hh"] = dbl(env["h"])
+    elif step == "A2":
+        env["rr"] = dbl(sub(v("s2"), v("s1")))
+    elif step == "A3":
+        env["ox"] = sub(sub(v("r2"), v("j")), dbl(v("v")))
+        env["v-ox"] = sub(v("v"), env["ox"])
+    elif step == "A4":
+        env["X"], env["Y"], env["Z"] = (
+            v("ox"), sub(v("rvx"), dbl(v("s1j"))), v("oz"))
+
+
+def _horner_step(env: dict, step, log: list) -> None:
+    name, kind, products = step
+    assert len(products) <= HORNER_SLOTS
+    assert kind == "M" or all(a == b for _, a, b in products)
+    done = {}
+    for slot, (out, a, b) in enumerate(products):
+        assert a in env and b in env, f"{name} slot {slot}: {out} too early"
+        done[out] = tjf.mont_mul(tjf.FQ, env[a], env[b])
+        log.append((name, kind, slot, out))
+    env.update(done)
+    _horner_linear(env, name)
+
+
+def _horner_schedule(parts, times: int):
+    """fold_horner_kernel's steps in torch over every batch lane at once:
+    per plane `times` doublings (D1-D3), then the add (A1-A4, the u1 == u2
+    test after A2), each lane's branches as masks.  Returns the (B, 3, 8)
+    result and the (step, kind, slot, value) log of every product."""
+    B = parts.shape[0]
+    acc = tjp.identity_points((B,), "cpu")
+    log: list = []
+    for d in range(parts.shape[1] - 1, -1, -1):
+        q = parts[:, d]
+        env = {"X": acc[:, 0], "Y": acc[:, 1], "Z": acc[:, 2],
+               "X2": q[:, 0], "Y2": q[:, 1], "Z2": q[:, 2]}
+        for _ in range(times):
+            for step in HORNER_DBL:
+                _horner_step(env, step, log)
+        dbl = torch.stack([env["X"], env["Y"], env["Z"]], dim=1)
+        for step in HORNER_ADD:
+            _horner_step(env, step, log)
+        added = torch.stack([env["X"], env["Y"], env["Z"]], dim=1)
+        zero = (dbl[:, 2] == 0).all(dim=-1)
+        q_zero = (q[:, 2] == 0).all(dim=-1)
+        eq = (env["u1"] == env["u2"]).all(dim=-1)
+        same = (env["s1"] == env["s2"]).all(dim=-1)
+        ident = tjp.identity_points((B,), "cpu")
+        out = torch.where((eq & same)[:, None, None], tjp.pdbl(dbl), added)
+        out = torch.where((eq & ~same)[:, None, None], ident, out)
+        out = torch.where(q_zero[:, None, None], dbl, out)
+        acc = torch.where(zero[:, None, None], q, out)
+    return acc, log
+
+
+def _horner_case(B: int, planes: int, times: int, seed: int):
+    """(B, planes, 3, 8) Jacobian partials.  Lane 0: only planes 1 and 0,
+    plane 0 = 2^times * plane 1 (the add doubles); lane 1: identity planes
+    at the top and every third; lane 2: plane 0 = -2^times * plane 1 (the
+    add gives the identity); lanes 3-4: no identity plane."""
+    pts = _points(B * planes, seed)
+    for b, lane in enumerate(range(B)):
+        row = pts[b * planes:(b + 1) * planes]
+        if lane in (0, 2):
+            p1 = row[1]
+            for i in range(2, planes):
+                row[i] = None
+            p0 = G1.scalar_mul(p1, 1 << times)
+            row[0] = p0 if lane == 0 else G1.neg(p0)
+        elif lane == 1:
+            for i in range(0, planes, 3):
+                row[i] = None
+            row[planes - 1] = row[planes - 2] = None
+        pts[b * planes:(b + 1) * planes] = row
+    jac = cuda_ec.fold_dbl_any(affine_to_device(pts, "cpu"))
+    return jac.reshape(B, planes, 3, 8)
+
+
+@pytest.mark.parametrize("B", [1, 3, 5])
+@pytest.mark.parametrize("times,planes", [(8, tmsm.NUM_WINDOWS),
+                                          (1, tmsm.SCALAR_BITS)])
+def test_fold_horner_schedule_matches_plain_and_halo2tpu(times, planes, B):
+    parts = _horner_case(B, planes, times, 120 + times + B)
+    got, log = _horner_schedule(parts, times)
+    # at most HORNER_SLOTS products a step, 3 steps a doubling, 4 an add
+    steps = {name for name, _, _, _ in log}
+    assert steps == {"D1", "D2", "D3", "A1", "A2", "A3", "A4"}
+    assert max(slot for _, _, slot, _ in log) == HORNER_SLOTS - 1
+    assert torch.equal(got, cuda_ec.fold_horner_plain(parts, times))
+    # halo2tpu's body of _horner_device_w / _horner_device (pdbl `times`
+    # times, then padd, a plane), its jpoint formulas on the same limbs
+    jparts = jnp.asarray(convert.to_jax_limbs(parts))
+    acc = jax_identity((B,))
+    for d in range(planes - 1, -1, -1):
+        for _ in range(times):
+            acc = jax_pdbl(acc)
+        acc = jax_padd(acc, jparts[:, d])
+    assert np.array_equal(convert.to_jax_limbs(got), np.asarray(acc))
+    if B == 5:     # the lanes by definition
+        aff = device_to_affine(parts.reshape(-1, 3, 8))
+        want = []
+        for b in range(B):
+            s = None
+            for d in range(planes):
+                p = aff[b * planes + d]
+                if p is not None:
+                    s = G1.add(s, G1.scalar_mul(p, pow(2, times * d, R)))
+            want.append(s)
+        assert device_to_affine(got) == want
+        assert want[2] is None
 
 
 def _rows_case(seed: int, C: int = 4, B: int = 2, rows: int = 4):

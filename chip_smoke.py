@@ -19,10 +19,12 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              timed beside the one-program kernel (G = 1); the weighted
              sum program over 64 vectors against its mont_mul and
              tree-sum chain; field_linscan at n = 1, 3, 1000 and 2^20
-             (every multiplier, direction and output), timed at a
+             (the sum, a multiplier and the product scan, every
+             direction and output, one launch a call), timed at a
              div_linear of 2^15 rows, an evaluation group of 16 x 2^15,
-             the suffix and prefix sums (each against the chain it
-             replaces) and 2^20 rows; the NTT's
+             the suffix and prefix sums, the grand products' product
+             scans over 80 columns of 2^15 rows (each against the chain
+             it replaces) and 2^20 rows; the NTT's
              forward, inverse, coset and h-chunk entries at n = 2^4-2^10
              with C = 1, 3, 8 columns and batch-less, and (timed) at n =
              2^15 with C = 64, 60, 34 and 1, 2^10 x 3 and 2^20 x 1; add /
@@ -32,19 +34,21 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              fold_mixed at the three widths of a k=15 commit,
              fold_dbl_any at 2^20 lanes once and 16 lanes 8 times,
              fold_add at msm()'s and a warm proof's widths, fold_add_tree
-             at the warm proof's four tail shapes and msm()'s,
+             at the warm proof's four tail shapes and msm()'s (one tree
+             launch each; also with the switch to four threads an add a
+             round earlier and later) and at one group of 2 and 65,536,
              fold_horner at both Horner combines (B = 8 x 32 planes x 8
              doublings and 254 x 1) and at the proofs' lane counts 1, 48,
              200 and 392, fold_mixed_tiled_rows at
              msm()'s full shape); kernel times as the median, min and max of
              3 rounds timed in turns, plain times, and the bound (the least
              time the card could take for the same work; beside it for
-             fe_pow and fold_horner the latency floor, their critical
-             path of dependent squarings and products at the latency of
-             one, which the mont_chain probe measures at one lane).  The
-             tree and Horner entries and the one-lane fe_pow are also
-             timed against the chains of launches they replace, and must
-             not be slower;
+             fe_pow, fold_horner and fold_add_tree the latency floor,
+             their critical path of dependent squarings and products at
+             the latency of one, which the mont_chain probe measures at
+             one lane).  The tree, Horner and scan entries and the
+             one-lane fe_pow are also timed against the chains of
+             launches they replace, and must not be slower;
              msm()'s tail also in one tree launch (the route ADD_WAVE is
              held against).
   3. golden  Square k=4, Timestamp k=6, RangeHarness k=7, Identity k=4,
@@ -62,7 +66,10 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              field_prog launch a quotient part, counted apart from the
              weighted-sum programs; at most MONT_MUL_ONE_LANE_PER_PROOF
              one-lane mont_mul and ADDSUB_PER_PROOF field_addsub launches;
-             no run of the plain NTT loop, the plain scan or the
+             FE_POW_PER_PROOF fe_pow launch and at most
+             GRAND_PRODUCT_LAUNCHES launches of the port's kernels in
+             the grand products; no run of the plain NTT loop, the plain
+             scans, the blocked prefix-product routes or the
              field-program interpreter on the card), peak memory; one more
              warm proof under torch.profiler (every CUDA kernel the card
              ran and the device busy share, profile_proof.profile_run);
@@ -80,8 +87,9 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              warm proofs with phase times (same seed, same bytes), one more
              under torch.profiler, verification, a tampered nullifier seed
              rejected, launches and shapes per warm proof (one field_prog
-             launch for each of the 8 quotient parts, no run of a plain
-             loop on the card), the part program's size, the part
+             launch for each of the 8 quotient parts, the grand
+             products' launches and fe_pow as in phase 4, no run of a
+             plain loop on the card), the part program's size, the part
              cache's bytes, peak memory and the sha256, held to
              COMPOSITE_PROOF_SHA256.
 The launch counts of phases 4, 5 and 6 are each zeroed just before the
@@ -140,6 +148,11 @@ ADD_LAUNCHES_PER_MSM = 4
 # and mont_mul at one lane at most MONT_MUL_ONE_LANE_PER_PROOF times
 FIELD_PROG_OVER_CHAIN = 20
 MONT_MUL_ONE_LANE_PER_PROOF = 500
+# launches of the port's kernels allowed in TorchEngine.grand_products a
+# warm proof (three product scans, four mont_mul and one fe_pow), and the
+# fe_pow launches a warm proof makes (the grand products' one inversion)
+GRAND_PRODUCT_LAUNCHES = 10
+FE_POW_PER_PROOF = 1
 # field_addsub launches allowed per warm RSA k=15 proof: the lanewise
 # numerators, SHPLONK's adds and the h fold (the scans and tree sums that
 # were most of them run as field_linscan and field programs)
@@ -342,6 +355,14 @@ def _tree_case(g, G: int, W: int, dev):
     acc[2, 2] = 0                                         # p identity
     acc[3 + h, 2] = 0                                     # q identity
     return acc, (G * (W - 1) - 5) * ADD + (ADD_PRE + DBL) + ADD_PRE
+
+
+def _tree_chain(W: int) -> dict:
+    """fold_add_tree's critical path at width W: one add a round, each a
+    squaring and four products on the slot schedule (ec_fold.cu::
+    tree_add4; a one-thread round's pt_add is longer)."""
+    rounds = W.bit_length() - 1
+    return {"squarings": rounds, "products": 4 * rounds}
 
 
 def _horner_case(g, B: int, P: int, times: int, dev):
@@ -988,70 +1009,103 @@ def phase_kernels(report: dict, card: Card) -> None:
               card.bound(sum(a.numel() for a in args) * 4 + lanes * 32, 0),
               lanes=lanes, op=op, broadcast=bcast)
 
-    # the linear scan (cuda_field.linscan, csrc/field_linscan.cu), Fr:
-    # bitwise against the plain scan at the edge sizes 1, 3, 1000 and 2^20,
-    # forward and reverse, a = 1 and a random a, every x, the exclusive x
-    # and the total; timed at the proof's shapes (a div_linear of 2^15
-    # rows, the main path's, first; an evaluation group of 16 polys of
-    # 2^15 rows; the suffix and prefix sums at 2^15; a total and a full
-    # scan at 2^20), against its bound and the chain of launches each
-    # replaces (the engine's routes before this kernel)
+    # the scans (cuda_field.linscan and prodscan, csrc/field_linscan.cu),
+    # Fr: bitwise against the plain scans at the edge sizes 1, 3, 1000 and
+    # 2^20, forward and reverse, the sum, a random multiplier a and the
+    # product, every x, the exclusive x and the total, each one launch;
+    # timed at the proof's shapes (a div_linear of 2^15 rows, the main
+    # path's, first; an evaluation group of 16 polys of 2^15 rows; the
+    # suffix and prefix sums at 2^15; the grand products' scans over 80
+    # columns of 2^15 rows; a total and a full scan at 2^20), against its
+    # bound and the chain of launches each replaces (the engine's routes
+    # before this kernel: must not be slower)
     a_r = int(torch.randint(1, 2**62, (1,), generator=g)) ** 4 % R
+
+    def scan_of(kind, a):
+        if kind == "prod":
+            return (lambda x, r, e, t: cuda_field.prodscan(jfield.FR, x, r, e,
+                                                           t),
+                    lambda x, r, e, t: cuda_field.prodscan_plain(
+                        jfield.FR, x, r, e, t))
+        return (lambda x, r, e, t: cuda_field.linscan(jfield.FR, x, a, r, e,
+                                                      t),
+                lambda x, r, e, t: cuda_field.linscan_plain(jfield.FR, x, a,
+                                                            r, e, t))
+
+    scan_kinds = (("one", 1), ("a", a_r), ("prod", 1))
     for n in (1, 3, 1000, 1 << 20):
         v = _rand_fe(g, n, dev)
-        for a in (1, a_r):
+        for kind, a in scan_kinds:
+            fn, plain = scan_of(kind, a)
             for reverse in (False, True):
                 for exclusive, totals in ((False, False), (True, False),
                                           (False, True)):
-                    err = _max_abs_err(
-                        cuda_field.linscan(jfield.FR, v, a, reverse,
-                                           exclusive, totals),
-                        cuda_field.linscan_plain(jfield.FR, v, a, reverse,
-                                                 exclusive, totals))
+                    before = cuda_field.linscan.launches
+                    got = fn(v, reverse, exclusive, totals)
+                    if cuda_field.linscan.launches != before + 1:
+                        raise AssertionError(f"field_linscan n={n} {kind}: "
+                                             "not one launch")
+                    err = _max_abs_err(got, plain(v, reverse, exclusive,
+                                                  totals))
                     if err:
                         raise AssertionError(
-                            f"field_linscan n={n} a={a} reverse={reverse} "
-                            f"exclusive={exclusive} totals={totals}: kernel "
-                            f"!= plain ({err})")
-    log("kernels: field_linscan bitwise equal to its plain version at n = "
-        "1, 3, 1000, 2^20 (2 multipliers, 2 directions, 3 outputs)")
+                            f"field_linscan n={n} {kind} a={a} reverse="
+                            f"{reverse} exclusive={exclusive} totals="
+                            f"{totals}: kernel != plain ({err})")
+    log("kernels: field_linscan bitwise equal to its plain versions at n = "
+        "1, 3, 1000, 2^20 (sum, linear, product; 2 directions, 3 outputs), "
+        "one launch a call")
     v = _rand_fe(g, n_q, dev)
     polys = _rand_fe(g, 16 * n_q, dev).reshape(16, n_q, 8)
     big = _rand_fe(g, 1 << 20, dev)
+    gp = _rand_fe(g, 80 * n_q, dev).reshape(80, n_q, 8)
+
+    def chain_prefix_prod(x):
+        """The grand products' prefix-product route before the product
+        scan: jfield._prefix_prod_plain over (rows, columns), blocked
+        mont_mul launches."""
+        return jfield._prefix_prod_plain(jfield.FR, x.transpose(0, 1)
+                                         ).transpose(0, 1)
+
     scan_cases = (
-        ("div_linear L32768", v, a_r, True, True, False,
+        ("div_linear L32768", v, "a", a_r, True, True, False,
          lambda: _chain_div_linear(v, a_r)),
-        ("eval 16 x 32768", polys, a_r, True, False, True,
+        ("eval 16 x 32768", polys, "a", a_r, True, False, True,
          lambda: _chain_eval(polys, a_r)),
-        ("suffix sum L32768", v, 1, True, False, False,
+        ("suffix sum L32768", v, "one", 1, True, False, False,
          lambda: _chain_scan(v, reverse=True)),
-        ("prefix sum L32768", v, 1, False, False, False,
+        ("prefix sum L32768", v, "one", 1, False, False, False,
          lambda: _chain_scan(v)),
-        ("total L1048576", big, a_r, False, False, True, None),
-        ("full L1048576", big, a_r, False, False, False, None))
-    for label, x, a, reverse, exclusive, totals, chain in scan_cases:
+        ("prodscan 80 x 32768", gp, "prod", 1, False, False, False,
+         lambda: chain_prefix_prod(gp)),
+        ("prodscan exclusive reverse 80 x 32768", gp, "prod", 1, True, True,
+         False, None),
+        ("total L1048576", big, "a", a_r, False, False, True, None),
+        ("full L1048576", big, "a", a_r, False, False, False, None))
+    for label, x, kind, a, reverse, exclusive, totals, chain in scan_cases:
         elems = x.numel() // 8
         cols = x.shape[0] if x.dim() == 3 else 1
         out_bytes = cols * 32 if totals else elems * 32
         name = f"field_linscan {label}"
         extra = {"chain_case": f"{name} chain"} if chain else {}
-        run, nb, run2 = cuda_field.scan_shapes(elems // cols, a == 1)
+        run, nb = cuda_field.scan_shapes(elems // cols, kind, cols,
+                                         cuda_field._scan_wave(dev))
+        fn, plain = scan_of(kind, a)
         check("field_linscan", name,
-              lambda x=x, a=a, r=reverse, e=exclusive, t=totals:
-                  cuda_field.linscan(jfield.FR, x, a, r, e, t),
-              lambda x=x, a=a, r=reverse, e=exclusive, t=totals:
-                  cuda_field.linscan_plain(jfield.FR, x, a, r, e, t),
-              200, card.bound(elems * 32 + out_bytes,
-                              0 if a == 1 else elems * MUL32_PER_MONT),
-              plain_runs=1, rows=elems // cols, columns=cols,
-              one=a == 1, reverse=reverse, exclusive=exclusive,
-              totals=totals, run=run, blocks_per_column=nb, carry_run=run2,
-              launches_per_call=1 if nb == 1 else 2 if totals else 3,
+              lambda x=x, f=fn, r=reverse, e=exclusive, t=totals:
+                  f(x, r, e, t),
+              lambda x=x, f=plain, r=reverse, e=exclusive, t=totals:
+                  f(x, r, e, t),
+              200 if elems < 1 << 20 else 50,
+              card.bound(elems * 32 + out_bytes,
+                         0 if kind == "one" else elems * MUL32_PER_MONT),
+              plain_runs=1, rows=elems // cols, columns=cols, kind=kind,
+              reverse=reverse, exclusive=exclusive, totals=totals, run=run,
+              blocks_per_column=nb, blocks=nb * cols, launches_per_call=1,
               **extra)
         if chain:
             _chain_case(cases, f"{name} chain", chain,
-                        cuda_field.linscan(jfield.FR, x, a, reverse,
-                                           exclusive, totals), 20)
+                        fn(x, reverse, exclusive, totals), 20)
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -1154,8 +1208,12 @@ def phase_kernels(report: dict, card: Card) -> None:
     # fold_add_tree at the warm proof's tail shapes (G groups x width: the
     # 65,536-lane fold_mixed launches at C = 256, 1024 and 2048, and the
     # 98,304-lane one) and msm()'s (2032 x 256: two lanewise rounds, then
-    # one tree launch), each also timed against the chain of lanewise add
-    # launches it replaces
+    # one tree launch), each one launch of the tree kernel, also timed
+    # against the chain of lanewise add launches it replaces and with the
+    # switch to four threads an add a round earlier (a slot limit of two
+    # waves) and a round later (half a wave); beside its bound the latency
+    # floor of its rounds (tree_add4's critical path each); and bitwise at
+    # one group of 2 and of 65,536 lanes
     def chain_tree(acc, G, W):
         while W > 1:
             a4 = acc.reshape(G, W, 3, 8)
@@ -1164,18 +1222,46 @@ def phase_kernels(report: dict, card: Card) -> None:
             W //= 2
         return acc
 
+    def tree_at(acc, G, W, limit):
+        cuda_ec.TREE_SLOT_LIMIT = limit
+        try:
+            return cuda_ec.fold_add_tree(acc, G, W)
+        finally:
+            cuda_ec.TREE_SLOT_LIMIT = None
+
+    wave = cuda_ec.tree_slot_limit(dev)
+    for G, W in ((1, 2), (1, 1 << 16)):
+        acc, _ = _tree_case(g, G, W, dev) if W > 8 else (
+            _rand_points(g, 2, dev), 0)
+        err = _max_abs_err(cuda_ec.fold_add_tree(acc, G, W),
+                           cuda_ec.fold_add_tree_plain(acc, G, W))
+        if err:
+            raise AssertionError(f"fold_add_tree {G}x{W}: kernel != plain "
+                                 f"({err})")
     for G, W, iters in ((256, 256, 200), (64, 1024, 200), (32, 2048, 200),
                         (96, 1024, 200), (SCALAR_BITS * Bm, C, 100)):
         acc, mul32 = _tree_case(g, G, W, dev)
         name = f"fold_add_tree {G}x{W}"
+        slots = cuda_ec.tree_round_slots(G, W, wave)
+        alts = {"slot_switch_a_round_earlier": f"{name} limit x2",
+                "slot_switch_a_round_later": f"{name} limit x0.5"}
         check("fold_add_tree", name,
               lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree(a, G, W),
               lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree_plain(a, G, W),
-              iters, card.bound((G * W + G) * POINT_BYTES, mul32),
-              plain_runs=1, groups=G, width=W, chain_case=f"{name} chain")
+              iters, lat.floor(card.bound((G * W + G) * POINT_BYTES, mul32),
+                               _tree_chain(W)),
+              plain_runs=1, groups=G, width=W, chain_case=f"{name} chain",
+              slot_limit=wave, one_thread_rounds=slots.count(False),
+              slot_rounds=slots.count(True), alts=alts)
         _chain_case(cases, f"{name} chain",
                     lambda a=acc, G=G, W=W: chain_tree(a, G, W),
                     cuda_ec.fold_add_tree(acc, G, W), iters)
+        for factor, case in ((2, alts["slot_switch_a_round_earlier"]),
+                             (0.5, alts["slot_switch_a_round_later"])):
+            _chain_case(cases, case,
+                        lambda a=acc, G=G, W=W, lim=int(wave * factor):
+                            tree_at(a, G, W, lim),
+                        cuda_ec.fold_add_tree(acc, G, W), iters)
 
     # msm()'s tail also with every round in the tree kernel (one launch, no
     # lanewise round of ADD_WAVE adds or more): the route the wave rule is
@@ -1187,7 +1273,7 @@ def phase_kernels(report: dict, card: Card) -> None:
         finally:
             cuda_ec.ADD_WAVE = wave
 
-    checks["fold_add_tree"][-1]["alt_case"] = f"{name} one launch"
+    checks["fold_add_tree"][-1]["alts"]["one_launch"] = f"{name} one launch"
     _chain_case(cases, f"{name} one launch",
                 lambda a=acc, G=G, W=W: tree_only(a, G, W),
                 cuda_ec.fold_add_tree(acc, G, W), iters)
@@ -1267,8 +1353,10 @@ def phase_kernels(report: dict, card: Card) -> None:
                     raise AssertionError(f"{row['case']}: slower than the "
                                          "chain of launches it replaces")
             if "alt_case" in row:
-                key = row.pop("alt_key", "one_launch")
-                alt = times[row.pop("alt_case")]
+                row.setdefault("alts", {})[row.pop("alt_key", "one_launch")] \
+                    = row.pop("alt_case")
+            for key, case in row.pop("alts", {}).items():
+                alt = times[case]
                 row.update({f"{key}_ms": alt["ms"],
                             f"{key}_ms_min": alt["ms_min"],
                             f"{key}_ms_max": alt["ms_max"]})
@@ -1285,14 +1373,20 @@ def phase_kernels(report: dict, card: Card) -> None:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "ms_min": main["ms_min"],
             "ms_max": main["ms_max"], "cases": rows}
-    for name in ("fe_pow", "fold_horner"):
+    for name in ("fe_pow", "fold_horner", "fold_add_tree"):
         report[name].update(
             latency_floor_ms=report[name]["cases"][0]["latency_floor_ms"],
             product_latency=lat.summary())
-    for row in report["fold_horner"]["cases"]:
+    for row in report["fold_horner"]["cases"] + report["fold_add_tree"][
+            "cases"]:
         log(f"kernel {row['case']}: latency floor "
             f"{row['latency_floor_ms']:.4f} ms ({row['floor_chain']}), "
-            f"kernel / floor {row['ms'] / row['latency_floor_ms']:.2f}")
+            f"kernel / floor {row['ms'] / row['latency_floor_ms']:.2f}, "
+            f"kernel / bound {row['ms'] / row['bound_ms']:.2f}")
+    for row in report["field_linscan"]["cases"]:
+        log(f"kernel {row['case']}: kernel / bound "
+            f"{row['ms'] / row['bound_ms']:.2f} ({row['bound_by']}), "
+            f"{row['blocks']} blocks of runs of {row['run']}")
     for row in report["ntt"]["cases"]:
         log(f"kernel {row['case']}: kernel / bound "
             f"{row['ms'] / row['bound_ms']:.2f}, register bits "
@@ -1339,12 +1433,19 @@ def _wrappers() -> dict:
 def _plain_loops() -> dict:
     """The plain loops a kernel replaced, each counting its runs on CUDA
     tensors: the NTT's Stockham loop, the scan's add rounds (the
-    prefix/suffix sums, div_linear and evaluations before field_linscan)
-    and the field-program interpreter (the weighted sums' tree-sum rounds
-    before the sum program)."""
+    prefix/suffix sums, div_linear and evaluations before field_linscan),
+    the product scan's rounds and the blocked mont_mul routes of the prefix
+    product and the batch inversion (the grand products and keygen's
+    window table before the product scan), and the field-program
+    interpreter (the weighted sums' tree-sum rounds before the sum
+    program)."""
+    from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.ops import cuda_field, field_prog, ntt
     return {"ntt._ntt_run": ntt._ntt_run,
             "cuda_field.linscan_plain": cuda_field.linscan_plain,
+            "cuda_field.prodscan_plain": cuda_field.prodscan_plain,
+            "jfield._prefix_prod_plain": jfield._prefix_prod_plain,
+            "jfield.batch_inv_scan_plain": jfield.batch_inv_scan_plain,
             "field_prog.field_prog_plain": field_prog.field_prog_plain}
 
 
@@ -1378,12 +1479,12 @@ def _shapes() -> dict:
 SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
               "field_prog": "program x rows x instructions x groups",
               "ntt": "n x C x passes", "field_addsub": "lanes x op",
-              "field_linscan": "n x columns x output x multiplier x launches",
+              "field_linscan": "n x columns x output x kind",
               "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
               "fold_mixed_tiled_rows": "lanes x C x rows",
               "fold_add": "lanes", "fold_add_any": "lanes",
-              "fold_add_tree": "groups x width x out_width",
+              "fold_add_tree": "groups x width",
               "fold_horner": "lanes x planes x times"}
 # the __global__ function (csrc/, _build.KERNELS) behind each wrapper
 KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
@@ -1391,7 +1492,7 @@ KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "field_prog": "field_prog_kernel",
              "ntt": "ntt_pass_kernel<3>",
              "field_addsub": "field_addsub_kernel",
-             "field_linscan": "field_linscan_kernel<false>",
+             "field_linscan": "field_linscan_kernel<1>",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
              "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
@@ -1399,6 +1500,31 @@ KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "fold_add_tree": "fold_add_tree_kernel",
              "fold_horner": "fold_horner_kernel",
              "fold_dbl_any": "fold_dbl_kernel"}
+
+
+def _count_grand_products(eng) -> list:
+    """Wrap eng.grand_products so that each call appends the launches of
+    the port's kernels it made; returns that list."""
+    inner, calls = eng.grand_products, []
+
+    def counted(nums, dens):
+        before = _counts()
+        out = inner(nums, dens)
+        calls.append(sum(n - before[k] for k, n in _counts().items()))
+        return out
+
+    eng.grand_products = counted
+    return calls
+
+
+def _check_grand_products(path: str, per_warm: dict, gp_launches: int):
+    if (gp_launches > GRAND_PRODUCT_LAUNCHES
+            or per_warm["fe_pow"] != FE_POW_PER_PROOF):
+        raise AssertionError(f"{path}: grand_products launched {gp_launches} "
+                             f"kernels and fe_pow {per_warm['fe_pow']} in a "
+                             "warm proof")
+    log(f"{path}: a warm proof's grand_products launch {gp_launches} of the "
+        f"port's kernels; fe_pow {per_warm['fe_pow']}")
 
 
 def _field_prog_by_program(hist) -> dict:
@@ -1595,6 +1721,7 @@ def phase_slice(report: dict, cache_dir: str):
                            device="cuda", cache_dir=cache_dir)
     kg = time.perf_counter() - t0
     eng = TorchEngine(vk.domain, srs, "cuda")
+    gp_calls = _count_grand_products(eng)
     log(f"slice: keygen {kg:.1f} s (window table built in this run)")
     t0 = time.perf_counter()
     cold_proof = create_proof(pk, srs, c, c.instances(), rng_seed=3,
@@ -1649,6 +1776,7 @@ def phase_slice(report: dict, cache_dir: str):
                              f"parts), {one_lane} one-lane mont_mul and "
                              f"{per_warm['field_addsub']} field_addsub "
                              "launches in a warm proof")
+    _check_grand_products("slice", per_warm, gp_calls[1])
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
     log(f"slice: a warm proof launches field_addsub "
         f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
@@ -1678,6 +1806,9 @@ def phase_slice(report: dict, cache_dir: str):
                   "fold_horner", "fold_dbl_any"))
     report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
                          quotient_s=tr.phases["quotient"])
+    report["field_linscan"].update(
+        grand_products_launches_per_warm_proof=gp_calls[1],
+        grand_products_s=tr.phases["grand_products"])
     report["field_prog"].update(warm_proof_s=warm,
                                 warm_launches_by_program=by_prog,
                                 quotient_s=tr.phases["quotient"],
@@ -1866,6 +1997,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
         f"columns in {cs.num_permutation_chunks()} chunks of "
         f"{cs.permutation_chunk_len()}, {len(cs.lookups)} lookups")
     eng = TorchEngine(d, srs, "cuda")
+    gp_calls = _count_grand_products(eng)
     t0 = time.perf_counter()
     cold_proof = create_proof(pk, srs, c, inst, rng_seed=7, engine=eng)
     cold = time.perf_counter() - t0
@@ -1914,6 +2046,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
         raise AssertionError(f"composite: proof sha256 {sha}, expected "
                              f"{COMPOSITE_PROOF_SHA256}")
     _check_no_plain_loops("composite")
+    _check_grand_products("composite", per_warm, gp_calls[1])
     by_prog = _field_prog_by_program(warm_shapes["field_prog"])
     log(f"composite: a warm proof launches field_addsub "
         f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
@@ -1936,6 +2069,9 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
                   "field_linscan", "fold_mixed", "fold_add_tree", "fold_horner"))
     for name, n in per_warm.items():
         report[name]["composite_launches_per_warm_proof"] = n
+    report["field_linscan"].update(
+        composite_grand_products_launches_per_warm_proof=gp_calls[1],
+        composite_grand_products_s=tr.phases["grand_products"])
     report["ntt"].update(composite_advice_ntt_s=tr.phases["advice_ntt"],
                          composite_quotient_s=tr.phases["quotient"])
     report["field_prog"].update(
@@ -2013,11 +2149,20 @@ def main() -> int:
         ntt1 = _build.resources["ntt_pass_kernel<1>"]
         report["ntt"].update(registers_rb1=ntt1["registers"],
                              spill_bytes_rb1=ntt1["spill_bytes"])
+        scans = {k: _build.resources[f"field_linscan_kernel<{i}>"]
+                 for i, k in enumerate(("sum", "linear", "product"))}
+        report["field_linscan"].update(
+            registers_by_kind={k: r["registers"] for k, r in scans.items()},
+            spill_bytes_by_kind={k: r["spill_bytes"]
+                                 for k, r in scans.items()})
         for kernel in ("ntt_pass_kernel<3>", "ntt_pass_kernel<1>",
-                       "fold_horner_kernel", "mont_chain_kernel"):
+                       "fold_horner_kernel", "fold_add_tree_kernel",
+                       "field_linscan_kernel<0>", "field_linscan_kernel<1>",
+                       "field_linscan_kernel<2>", "mont_chain_kernel"):
             res = _build.resources[kernel]
             log(f"kernel {kernel}: {res['registers']} registers, "
-                f"{res['spill_bytes']} bytes spilled")
+                f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} "
+                "bytes shared")
         add = report["fold_add"]
         add.update(_issue_bound(sass, card, add["cases"][0]["lanes"]))
         log(f"kernel fold_add: {add['sass_per_lane']} SASS instructions a "

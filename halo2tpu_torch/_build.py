@@ -48,8 +48,9 @@ _SIGNATURES = {
     "h2_field_prog": [_P, _P, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P],
     "h2_field_addsub": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I32, _P,
                         _P],
-    "h2_field_linscan": [_P, _I64, _I64, _P, _P, _I64, _I64, _I32, _I64,
-                         _I32, _I32, _I32, _I32, _I32, _P, _P, _P],
+    "h2_field_linscan": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I64, _I32,
+                         _I32, _I32, _I32, _P, _P, _P, _P, _P,
+                         ctypes.c_ulonglong, ctypes.c_uint, _P, _P],
     "h2_ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                     _I32, _P, _P],
     "h2_fold_mixed": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _P,
@@ -58,7 +59,7 @@ _SIGNATURES = {
     "h2_fold_mixed_tiled_rows": [_P, _P, _P, _P, _I64, _I32, _I32, _I64,
                                  _I32, _I32, _P, _P],
     "h2_fold_add": [_P, _P, _P, _I64, _P, _P],
-    "h2_fold_add_tree": [_P, _P, _I64, _I32, _I32, _P, _P],
+    "h2_fold_add_tree": [_P, _P, _P, _P, _I64, _I32, _I64, _P, _P],
     "h2_fold_dbl": [_P, _P, _I64, _I32, _P, _P],
     "h2_fold_horner": [_P, _P, _I32, _I32, _I32, _P, _P],
 }

@@ -22,9 +22,9 @@
 //                    the same entry serves pallas_ec.py::fold_add, whose
 //                    L % 512 == 0 rule the Python wrapper checks;
 //   fold_add_tree <- the MSM tails' chains of fold_add_any launches
-//                    (ops/msm.py, _partials_fused and _bit_partials_pallas):
-//                    up to 8 halving rounds of the same add (_padd_core) in
-//                    one launch;
+//                    (ops/msm.py, _partials_fused and _bit_partials_pallas,
+//                    pallas_ec.py::_fold_add_tile a round): every halving
+//                    round of a tail up to 65,536 lanes wide in one launch;
 //   fold_horner   <- ops/msm.py::_horner_device_w / _horner_device (XLA
 //                    fori_loops of pdbl and padd): the whole Horner combine
 //                    of a batch lane in one launch, four threads a lane;
@@ -57,19 +57,25 @@
 // 128 rows at random bits), in ascending row order as the chain did.  The
 // next set row is known one step ahead: its base is gathered into the same
 // two-stage cp.async ring as fold_mixed's.
-// The add and tree kernels fit 128 registers (4 blocks an SM, 67,584 lanes
-// a wave on 132 SMs) without spills because pt_add takes its Z3 factor
-// before the doubling test and keeps the doubling out of line; they state
-// only their block size: held to 4 blocks an SM as well, ptxas chose 122
-// registers for the add kernel and a schedule 4% slower.  The Horner
-// kernel is held to 128 registers too, and fits without spills by keeping
-// the add's early values and its acc in shared memory.
+// The add kernel fits 128 registers (4 blocks an SM, 67,584 lanes a wave
+// on 132 SMs) without spills because pt_add takes its Z3 factor before the
+// doubling test and keeps the doubling out of line; it states only its
+// block size: held to 4 blocks an SM as well, ptxas chose 122 registers and
+// a schedule 4% slower.  The Horner and tree kernels are held to 128
+// registers and fit without spills by keeping values in shared memory
+// (the Horner add's early values and acc; the tree's slot products, and
+// its one-thread add reads each coordinate where it is needed).
 // The MSM tails and the Horner combines are bound by latency and launches:
 // their rounds have fewer lanes than a wave, and each round was a launch.
 // fold_add_tree loads 256 lanes a block into shared memory and runs the
 // rounds there, one barrier a round, the adds of a round packed onto the
 // lowest threads so that deep rounds of several small groups still fill
-// warps; a tail of width <= 256 is one launch (two up to 65,536).
+// warps.  A round too narrow to fill the card (its adds on four threads
+// each fit one wave) runs each add on four threads, fold_horner's step
+// schedule of pt_add: a squaring and four products deep instead of
+// sixteen; a group wider than 256 lanes is summed by its blocks and then
+// by the last of them to finish, so a tail of width <= 65,536 is one
+// launch.
 // fold_horner gives each batch lane four threads that keep its accumulator
 // for all planes: a chain of 256 doublings and 32 adds (or 254 and 254)
 // that launches once instead of twice a plane, latency-bound (a proof's
@@ -433,51 +439,268 @@ fold_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   pt_store(out + l * 3 * H2_LIMBS, pt_add(a, b, M));
 }
 
-// Halving rounds of the add over groups of `width` lanes, down to
-// `out_width` lanes a group: round j adds lane i + w/2 into lane i (w the
-// width before the round), as the chain of lanewise launches did.  Output
-// lane s of group g, set j = g * out_width + s, is then the sum of the m =
-// width / out_width lanes s + k * out_width of the group, and the rounds
-// stay within that set.  A block takes kTreeLanes / m whole sets into
-// shared memory (kTreeLanes lanes, 24 KB); in each round the adds of all
-// its sets are packed onto its lowest threads (thread -> set t / h, k = t
-// mod h for h adds a set), so a round of few adds a set still fills whole
-// warps while the block has enough of them.  A thread reads and writes
-// only its own lane k of a round (lane k + h is left as it is), so one
-// barrier a round suffices.
-__global__ void __launch_bounds__(kThreads)
-fold_add_tree_kernel(const uint32_t* __restrict__ in,
-                     uint32_t* __restrict__ out, long long sets, int width,
-                     int out_width, const __grid_constant__ Modulus M) {
-  __shared__ uint4 lanes[kEntryChunks][kTreeLanes];
-  uint4* buf = &lanes[0][0];
-  const int t = threadIdx.x;
-  const int m = width / out_width;
-  const int per_block = kTreeLanes / m;
-  const long long j0 = (long long)blockIdx.x * per_block;
-  for (int q = t; q < kTreeLanes; q += kThreads) {
-    const long long j = j0 + q / m;
-    if (j < sets) {
-      const long long g = j / out_width;
-      const long long lane =
-          g * width + (j - g * out_width) + (long long)(q % m) * out_width;
-      pt_put(buf, kTreeLanes, q, pt_load(in + lane * 3 * H2_LIMBS));
+// fold_add_tree: the rounds of a tail whose adds, four threads each, fit
+// in one wave of the card (slot_limit threads) run each add on four threads
+// (tree_add4, the step schedule of fold_horner's add); wider rounds run one
+// add a thread (tree_add1, pt_add).  The products one add of a slot round
+// keeps in shared memory (its threads read them from there: no shuffle),
+// those of steps S0-A2, then from A3 on the dead ones reused.
+enum {
+  kTZ1Z1, kTZ2Z2, kTZZ, kTU1, kTY1Z2, kTU2, kTY2Z1, kTI, kTS1, kTOZ, kTS2,
+  kTKept,
+  kTJ = kTZ1Z1, kTV = kTZ2Z2, kTR2 = kTZZ, kTRVX = kTY1Z2, kTS1J = kTU2
+};
+constexpr int kTreeSlots = 4;
+constexpr int kTreeAdds = kThreads / kTreeSlots;   // adds a pass of a round
+
+__device__ __forceinline__ Fe fe_sel4(int s, const Fe& a0, const Fe& a1,
+                                      const Fe& a2, const Fe& a3) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < H2_LIMBS; i++)
+    r.v[i] = s == 0 ? a0.v[i] : s == 1 ? a1.v[i] : s == 2 ? a2.v[i] : a3.v[i];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_load_cg(const uint32_t* ptr) {
+  const uint4 lo = __ldcg(reinterpret_cast<const uint4*>(ptr));
+  const uint4 hi = __ldcg(reinterpret_cast<const uint4*>(ptr + 4));
+  Fe r;
+  r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
+  r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
+  return r;
+}
+
+// buf lane a <- lane a + lane b on one thread: pt_add's steps, each
+// coordinate read from shared memory only where it is needed (the held
+// points pushed pt_add past 128 registers beside tree_add4)
+__device__ __forceinline__ void tree_add1(uint4* buf, int a, int b,
+                                          const Modulus& M) {
+  auto lane = [&](int coord, int i) {
+    return fe_get(buf + 2 * coord * kTreeLanes, kTreeLanes, i);
+  };
+  const Fe z1 = lane(2, a), z2 = lane(2, b);
+  if (fe_is_zero(z1)) {
+    pt_put(buf, kTreeLanes, a, pt_get(buf, kTreeLanes, b));
+    return;
+  }
+  if (fe_is_zero(z2)) return;
+  const Fe z1z1 = fe_sqr(z1, M);
+  const Fe z2z2 = fe_sqr(z2, M);
+  const Fe u1 = fe_mul(lane(0, a), z2z2, M);
+  const Fe u2 = fe_mul(lane(0, b), z1z1, M);
+  const Fe s1 = fe_mul(fe_mul(lane(1, a), z2, M), z2z2, M);
+  const Fe s2 = fe_mul(fe_mul(lane(1, b), z1, M), z1z1, M);
+  const Fe zw = fe_sub(fe_sub(fe_sqr(fe_add(z1, z2, M), M), z1z1, M),
+                       z2z2, M);
+  if (fe_eq(u1, u2)) {
+    pt_put(buf, kTreeLanes, a,
+           fe_eq(s1, s2) ? pt_dbl_call(pt_get(buf, kTreeLanes, a), M)
+                         : pt_identity(M));
+    return;
+  }
+  const Fe h = fe_sub(u2, u1, M);
+  const Fe rr = fe_dbl(fe_sub(s2, s1, M), M);
+  const Fe i = fe_sqr(fe_dbl(h, M), M);
+  const Fe j = fe_mul(h, i, M);
+  const Fe v = fe_mul(u1, i, M);
+  Pt o;
+  o.x = fe_sub(fe_sub(fe_sqr(rr, M), j, M), fe_dbl(v, M), M);
+  const Fe rvx = fe_mul(rr, fe_sub(v, o.x, M), M);
+  const Fe s1j = fe_mul(s1, j, M);
+  o.z = fe_mul(zw, h, M);
+  o.y = fe_sub(rvx, fe_dbl(s1j, M), M);
+  pt_put(buf, kTreeLanes, a, o);
+}
+
+// buf lane a <- lane a + lane b (pt_add, the same values) on the four
+// threads slot 0-3 of add L, in steps of at most four independent
+// squarings (S) or products (M), one a slot, each stored to kept:
+//   S0 S  Z1Z1 = Z1^2, Z2Z2 = Z2^2, ZZ = (Z1 + Z2)^2
+//   A1 M  U1 = X1 Z2Z2, Y1 Z2, U2 = X2 Z1Z1, Y2 Z1
+//   A2 M  I = (2H)(2H), S1 = Y1Z2 Z2Z2, Z3 = ZW H, S2 = Y2Z1 Z1Z1
+//         (ZW = ZZ - Z1Z1 - Z2Z2, H = U2 - U1; then the U1 == U2 test)
+//   A3 M  J = H I, V = U1 I, R R          (R = 2 (S2 - S1))
+//   A4 M  R (V - X3), S1 J                (X3 = R R - J - 2 V)
+// The adds and subtractions between steps run on every slot (the same
+// values, no divergence).  The critical path is a squaring and four
+// products; pt_add's squarings of 2H and R are products here (the same
+// canonical values, so the same bits).  Every branch depends on values all
+// four threads hold, so they stay together.
+__device__ __forceinline__ void tree_add4(uint4* buf, uint4* kept, int L,
+                                          int slot, unsigned mask, int a,
+                                          int b, const Modulus& M) {
+  auto lane = [&](int coord, int i) {
+    return fe_get(buf + 2 * coord * kTreeLanes, kTreeLanes, i);
+  };
+  auto get = [&](int v) { return fe_get(kept + 2 * v * kTreeAdds, kTreeAdds, L); };
+  auto keep = [&](int v, const Fe& x) {
+    fe_put(kept + 2 * v * kTreeAdds, kTreeAdds, L, x);
+  };
+  const Fe z1 = lane(2, a), z2 = lane(2, b);
+  if (fe_is_zero(z1)) {                 // p the identity: the sum is q
+    if (slot < 3)
+      fe_put(buf + 2 * slot * kTreeLanes, kTreeLanes, a, lane(slot, b));
+  } else if (!fe_is_zero(z2)) {         // q the identity: p stays
+    {
+      const Fe x = fe_sel4(slot, z1, z2, fe_add(z1, z2, M), z1);
+      const Fe y = fe_sqr(x, M);
+      if (slot < 3) keep(kTZ1Z1 + slot, y);
+    }
+    __syncwarp(mask);
+    {
+      const Fe x = lane(slot & 1, slot < 2 ? a : b);     // X1, Y1, X2, Y2
+      const Fe y = slot & 1 ? lane(2, slot == 1 ? b : a)  // Z2, Z1
+                            : get(slot == 0 ? kTZ2Z2 : kTZ1Z1);
+      keep(kTU1 + slot, fe_mul(x, y, M));
+    }
+    __syncwarp(mask);
+    const Fe u1 = get(kTU1), u2 = get(kTU2);
+    const Fe h = fe_sub(u2, u1, M);
+    {
+      const Fe z1z1 = get(kTZ1Z1), z2z2 = get(kTZ2Z2);
+      const Fe zw = fe_sub(fe_sub(get(kTZZ), z1z1, M), z2z2, M);
+      const Fe hh = fe_dbl(h, M);
+      const Fe x = fe_sel4(slot, hh, get(kTY1Z2), zw, get(kTY2Z1));
+      const Fe y = fe_sel4(slot, hh, z2z2, h, z1z1);
+      keep(kTI + slot, fe_mul(x, y, M));
+    }
+    __syncwarp(mask);
+    const Fe s1 = get(kTS1), s2 = get(kTS2);
+    if (fe_eq(u1, u2)) {                // p == q doubles, p == -q cancels
+      if (slot == 0) {
+        const Pt p = pt_get(buf, kTreeLanes, a);
+        pt_put(buf, kTreeLanes, a,
+               fe_eq(s1, s2) ? pt_dbl_call(p, M) : pt_identity(M));
+      }
+    } else {
+      const Fe rr = fe_dbl(fe_sub(s2, s1, M), M);
+      {
+        const Fe i = get(kTI);
+        const Fe y = fe_mul(fe_sel4(slot, h, u1, rr, h),
+                            slot == 2 ? rr : i, M);
+        if (slot < 3) keep(kTJ + slot, y);
+      }
+      __syncwarp(mask);
+      const Fe j = get(kTJ), v = get(kTV);
+      const Fe ox = fe_sub(fe_sub(get(kTR2), j, M), fe_dbl(v, M), M);
+      {
+        const bool first = (slot & 1) == 0;
+        const Fe y = fe_mul(first ? rr : s1, first ? fe_sub(v, ox, M) : j, M);
+        if (slot < 2) keep(kTRVX + slot, y);
+      }
+      __syncwarp(mask);
+      if (slot == 0) {
+        Pt o;
+        o.x = ox;
+        o.y = fe_sub(get(kTRVX), fe_dbl(get(kTS1J), M), M);
+        o.z = get(kTOZ);
+        pt_put(buf, kTreeLanes, a, o);
+      }
     }
   }
-  __syncthreads();
-  for (int h = m >> 1; h > 0; h >>= 1) {
-    const int set = t / h;
-    if (set < per_block && j0 + set < sets) {
-      const int a = set * m + (t - set * h);
-      pt_put(buf, kTreeLanes, a,
-             pt_add(pt_get(buf, kTreeLanes, a), pt_get(buf, kTreeLanes, a + h),
-                    M));
+  __syncwarp(mask);
+}
+
+// Halving rounds over `sets` sets of m lanes packed in buf (set s at lanes
+// s m .. s m + m - 1): round j adds lane k + h into lane k of each set (h =
+// m / 2^(j+1)).  `round` is the tree's round of the first (global adds G
+// width / 2^(round+1)); a round runs on four threads an add where those
+// fit in slot_limit threads, else one thread an add (packed onto the
+// lowest threads).  A thread reads and writes only its own add's lanes, so
+// one barrier a round suffices.
+__device__ __forceinline__ void tree_rounds(uint4* buf, uint4* kept, int m,
+                                            int sets, int round,
+                                            long long lanes,
+                                            long long slot_limit,
+                                            const Modulus& M) {
+  const int t = threadIdx.x;
+  for (int h = m >> 1; h > 0; h >>= 1, round++) {
+    const int adds = sets * h;
+    if ((lanes >> (round + 1)) * kTreeSlots > slot_limit) {
+      if (t < adds) {
+        const int set = t / h;
+        const int a = set * m + (t - set * h);
+        tree_add1(buf, a, a + h, M);
+      }
+    } else {
+      const int L = t / kTreeSlots, slot = t % kTreeSlots;
+      const unsigned mask = 0xFu << ((t % 32) & ~3);
+      for (int x = L; x < adds; x += kTreeAdds) {
+        const int set = x / h;
+        const int a = set * m + (x - set * h);
+        tree_add4(buf, kept, L, slot, mask, a, a + h, M);
+      }
     }
     __syncthreads();
   }
-  if (t < per_block && j0 + t < sets) {
-    pt_store(out + (j0 + t) * 3 * H2_LIMBS, pt_get(buf, kTreeLanes, t * m));
+}
+
+// Each group of `width` lanes (a power of two <= 65,536) summed by halving
+// rounds in one launch, round j adding lane i + w/2 into lane i (w the
+// width before the round), as the chain of lanewise launches did.  A set
+// is the m = min(width, kTreeLanes) lanes s + k * (width / m) of a group,
+// which the first log2(m) rounds keep to themselves; a block takes
+// kTreeLanes / m whole sets into shared memory (24 KB) and halves them.
+// Width <= kTreeLanes: a set is a group, and the block writes its sums.
+// Wider groups: a block a set writes its sum to partials (the group's lane
+// s of width / m) and takes a ticket from the group's counter; the block
+// that takes the last runs the group's remaining rounds over the partials
+// (at most kTreeLanes) and zeroes the counter for the next launch.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fold_add_tree_kernel(const uint32_t* __restrict__ in,
+                     uint32_t* __restrict__ out, uint32_t* partials,
+                     int* counters, long long groups, int width,
+                     long long slot_limit,
+                     const __grid_constant__ Modulus M) {
+  __shared__ uint4 lanes[kEntryChunks][kTreeLanes];
+  __shared__ uint4 kept[2 * kTKept][kTreeAdds];
+  __shared__ int last;
+  uint4* buf = &lanes[0][0];
+  uint4* kv = &kept[0][0];
+  const int t = threadIdx.x;
+  const int m = width < kTreeLanes ? width : kTreeLanes;
+  const int per_set = width / m;               // sets a group
+  const long long sets = groups * per_set;
+  const int per_block = kTreeLanes / m;
+  const long long j0 = (long long)blockIdx.x * per_block;
+  const int mine = (int)(sets - j0 < per_block ? sets - j0 : per_block);
+  for (int q = t; q < mine * m; q += kThreads) {
+    const long long j = j0 + q / m;
+    const long long g = j / per_set;
+    const long long lane =
+        g * width + (j - g * per_set) + (long long)(q % m) * per_set;
+    pt_put(buf, kTreeLanes, q, pt_load(in + lane * 3 * H2_LIMBS));
   }
+  __syncthreads();
+  const long long all = groups * width;
+  tree_rounds(buf, kv, m, mine, 0, all, slot_limit, M);
+  if (per_set == 1) {
+    if (t < mine)
+      pt_store(out + (j0 + t) * 3 * H2_LIMBS, pt_get(buf, kTreeLanes, t * m));
+    return;
+  }
+  const long long g = j0 / per_set;
+  if (t == 0) {
+    pt_store(partials + j0 * 3 * H2_LIMBS, pt_get(buf, kTreeLanes, 0));
+    __threadfence();
+    last = atomicAdd(counters + g, 1) == per_set - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int q = t; q < per_set; q += kThreads) {
+    const uint32_t* src = partials + (g * per_set + q) * 3 * H2_LIMBS;
+    Pt p;
+    p.x = fe_load_cg(src);
+    p.y = fe_load_cg(src + H2_LIMBS);
+    p.z = fe_load_cg(src + 2 * H2_LIMBS);
+    pt_put(buf, kTreeLanes, q, p);
+  }
+  if (t == 0) counters[g] = 0;
+  __syncthreads();
+  tree_rounds(buf, kv, per_set, 1, 31 - __clz(m), all, slot_limit, M);
+  if (t == 0) pt_store(out + g * 3 * H2_LIMBS, pt_get(buf, kTreeLanes, 0));
 }
 
 // `times` chained doublings of each lane, in registers.
@@ -505,15 +728,6 @@ constexpr int kHornerThreads = 32;   // eight batch lanes a block
 constexpr int kHornerLanes = kHornerThreads / kHornerSlots;
 // blocks of kHornerThreads an SM must hold: at most 128 registers a thread
 constexpr int kHornerBlocks = 65536 / (128 * kHornerThreads);
-
-__device__ __forceinline__ Fe fe_sel4(int s, const Fe& a0, const Fe& a1,
-                                      const Fe& a2, const Fe& a3) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < H2_LIMBS; i++)
-    r.v[i] = s == 0 ? a0.v[i] : s == 1 ? a1.v[i] : s == 2 ? a2.v[i] : a3.v[i];
-  return r;
-}
 
 __device__ __forceinline__ Fe fe_shfl(const Fe& a, unsigned mask, int src) {
   Fe r;
@@ -719,17 +933,24 @@ extern "C" int h2_fold_mixed_tiled_rows(const void* acc_in, void* acc_out,
   return (int)cudaGetLastError();
 }
 
-// The wrapper keeps width / out_width a power of two in [2, kTreeLanes].
-extern "C" int h2_fold_add_tree(const void* in, void* out, long long groups,
-                                int width, int out_width, const uint32_t* mod,
+// width a power of two in [2, kTreeLanes^2]; partials (groups * width /
+// kTreeLanes, 3, 8) and counters (groups, zero) when width > kTreeLanes.
+extern "C" int h2_fold_add_tree(const void* in, void* out, void* partials,
+                                void* counters, long long groups, int width,
+                                long long slot_limit, const uint32_t* mod,
                                 void* stream) {
-  const long long sets = groups * out_width;
-  const int per_block = kTreeLanes / (width / out_width);
+  if (width < 2 || (width & (width - 1)) ||
+      width > kTreeLanes * kTreeLanes ||
+      (width > kTreeLanes && (partials == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int m = width < kTreeLanes ? width : kTreeLanes;
+  const long long sets = groups * (width / m);
+  const int per_block = kTreeLanes / m;
   if (sets > 0) {
     fold_add_tree_kernel<<<(unsigned)((sets + per_block - 1) / per_block),
                            kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)in, (uint32_t*)out, sets, width, out_width,
-        modulus_from_words(mod));
+        (const uint32_t*)in, (uint32_t*)out, (uint32_t*)partials,
+        (int*)counters, groups, width, slot_limit, modulus_from_words(mod));
   }
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,10 @@ canonical in [0, p) and in Montgomery form with R = 2^256 — the same bytes
 as halo2tpu's (..., 16) 16-bit limbs, so raw Montgomery arrays convert
 without arithmetic (halo2tpu_torch/convert.py).
 
-mont_mul, mont_pow, add/sub/neg and the prefix and suffix sums (the
-linear scan) launch the CUDA kernels (ops/cuda_field.py) for CUDA tensors
-and run their plain torch versions for CPU tensors; the prefix product is
-rounds of mont_mul.
+mont_mul, mont_pow, add/sub/neg, the prefix and suffix sums (the linear
+scan) and the prefix products (the product scan) launch the CUDA kernels
+(ops/cuda_field.py) for CUDA tensors and run their plain torch versions
+for CPU tensors (the prefix product's: blocked rounds of mont_mul).
 """
 from __future__ import annotations
 
@@ -197,6 +197,13 @@ def linscan(spec: FieldSpec, v, a: int = 1, reverse: bool = False,
     return cuda_field.linscan(spec, v, a, reverse, exclusive, totals)
 
 
+def prodscan(spec: FieldSpec, r, reverse: bool = False,
+             exclusive: bool = False, totals: bool = False):
+    """x_j = r_j x_(j-1) mod p (x_(-1) = 1) along axis -2 ((n, 8) or (C, n,
+    8)): ops/cuda_field.py::prodscan."""
+    return cuda_field.prodscan(spec, r, reverse, exclusive, totals)
+
+
 def is_zero(a):
     return (a == 0).all(-1)
 
@@ -246,12 +253,16 @@ def suffix_sum_mod(spec: FieldSpec, a):
 _SCAN_BLOCK = 16
 
 
-def _prefix_prod(spec: FieldSpec, a):
-    """Inclusive prefix product along axis 0, blocked: a sequential scan
-    inside blocks of 16 rows (16 batched multiplies over n/16 rows each),
-    the same scan recursively over the block totals, then one multiply by
-    each block's exclusive prefix — about 2n products in all.  At most 16
-    rows take Hillis-Steele rounds (4 launches, none of one row)."""
+def _prefix_prod_plain(spec: FieldSpec, a):
+    """Inclusive prefix product along axis 0, blocked, in mont_mul
+    launches: a sequential scan inside blocks of 16 rows (16 batched
+    multiplies over n/16 rows each), the same scan recursively over the
+    block totals, then one multiply by each block's exclusive prefix --
+    about 2n products in all.  At most 16 rows take Hillis-Steele rounds.
+    The plain version of _prefix_prod's kernel route (cuda_calls counts its
+    runs on CUDA tensors)."""
+    if a.device.type == "cuda":
+        _prefix_prod_plain.cuda_calls += 1
     n = a.shape[0]
     b = _SCAN_BLOCK
     if n <= b:
@@ -263,19 +274,63 @@ def _prefix_prod(spec: FieldSpec, a):
     for j in range(1, b):
         cols.append(mont_mul(spec, cols[-1], x[:, j]))
     x = torch.stack(cols, dim=1)
-    carry = _prefix_prod(spec, x[:, -1])[:-1]       # block totals' prefix
+    carry = _prefix_prod_plain(spec, x[:, -1])[:-1]  # block totals' prefix
     x = torch.cat([x[:1], mont_mul(spec, x[1:], carry[:, None])])
     return x.reshape((nb * b,) + a.shape[1:])[:n]
 
 
-def batch_inv_scan(spec: FieldSpec, a):
-    """Batched inversion over the leading axis: prefix/suffix products +
-    one Fermat inversion.  a: (n, 8), nonzero entries."""
-    prefix = _prefix_prod(spec, a)
-    suffix = torch.flip(_prefix_prod(spec, torch.flip(a, [0])), [0])
+_prefix_prod_plain.cuda_calls = 0
+
+
+def _prefix_prod(spec: FieldSpec, a):
+    """Inclusive prefix product along axis 0 of an (n, ..., 8) tensor.  On
+    CUDA one prodscan launch over the columns behind axis 0 (read in place);
+    on the CPU _prefix_prod_plain."""
+    if a.device.type == "cpu":
+        return _prefix_prod_plain(spec, a)
+    return _prefix_prod_scan(spec, a)
+
+
+def _prefix_prod_scan(spec: FieldSpec, a):
+    """_prefix_prod's kernel route on any device: one prodscan over the
+    columns behind axis 0."""
+    cols = a.reshape(a.shape[0], -1, NLIMB).transpose(0, 1)
+    return prodscan(spec, cols).transpose(0, 1).reshape(a.shape)
+
+
+def batch_inv_scan_plain(spec: FieldSpec, a):
+    """batch_inv_scan by blocked prefix and suffix products
+    (_prefix_prod_plain) and one Fermat inversion; cuda_calls counts its
+    runs on CUDA tensors."""
+    if a.device.type == "cuda":
+        batch_inv_scan_plain.cuda_calls += 1
+    prefix = _prefix_prod_plain(spec, a)
+    suffix = torch.flip(_prefix_prod_plain(spec, torch.flip(a, [0])), [0])
     total_inv = inv(spec, prefix[-1:])
     one = spec.const("one_mont", a.device)[None]
     prefix_shift = torch.cat([one, prefix[:-1]])
     suffix_shift = torch.cat([suffix[1:], one])
     return mont_mul(spec, mont_mul(spec, prefix_shift, suffix_shift),
                     total_inv)
+
+
+batch_inv_scan_plain.cuda_calls = 0
+
+
+def batch_inv_scan(spec: FieldSpec, a):
+    """Batched inversion over the leading axis: each entry times the
+    product of all the others (an exclusive prefix and an exclusive suffix
+    product) times the inverse of the total (one Fermat inversion).  a:
+    (n, 8), nonzero entries.  On CUDA two prodscan launches, the total, one
+    fe_pow and two products; on the CPU batch_inv_scan_plain."""
+    if a.device.type == "cpu":
+        return batch_inv_scan_plain(spec, a)
+    return _batch_inv_prodscan(spec, a)
+
+
+def _batch_inv_prodscan(spec: FieldSpec, a):
+    """batch_inv_scan's kernel route on any device."""
+    prefix = prodscan(spec, a, exclusive=True)
+    suffix = prodscan(spec, a, reverse=True, exclusive=True)
+    total_inv = inv(spec, mont_mul(spec, prefix[-1:], a[-1:]))
+    return mont_mul(spec, mont_mul(spec, prefix, suffix), total_inv)

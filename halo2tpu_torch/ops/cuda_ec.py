@@ -17,9 +17,8 @@ formulas (plain field multiply), on any device; the plain version of an
 entry that replaces a chain of launches is that chain.  Beside its count of
 launches, each wrapper keeps `shapes`, a histogram of the shapes it
 launched: (lanes, C, rows) for fold_mixed and fold_mixed_tiled_rows,
-(lanes, times) for fold_dbl_any, (groups, width, out_width) for
-fold_add_tree, (lanes, planes, times) for fold_horner, (lanes,) for the
-others.
+(lanes, times) for fold_dbl_any, (groups, width) for fold_add_tree,
+(lanes, planes, times) for fold_horner, (lanes,) for the others.
 """
 from __future__ import annotations
 
@@ -304,6 +303,34 @@ fold_add_any.shapes = Counter()
 # (chip_smoke.py phase 2 times both).
 ADD_WAVE = 1 << 16
 TREE_LANES = 256   # lanes one block of the tree kernel sums: 128 threads
+TREE_SLOTS = 4     # threads an add of a slot round
+# A tree round runs each add on TREE_SLOTS threads when those fit in this
+# many threads, else one add a thread; None: one wave of the add kernel on
+# the card (SMs x 4 blocks x 128 threads, 67,584 on an H100).  chip_smoke.py
+# times the switch a round earlier and a round later.
+TREE_SLOT_LIMIT = None
+
+_TREE_COUNTERS: dict = {}
+_TREE_WAVES: dict = {}
+
+
+def tree_slot_limit(device) -> int:
+    if TREE_SLOT_LIMIT is not None:
+        return TREE_SLOT_LIMIT
+    wave = _TREE_WAVES.get(device)
+    if wave is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        wave = _TREE_WAVES[device] = sms * 4 * 128
+    return wave
+
+
+def tree_round_slots(G: int, width: int, limit: int) -> list:
+    """For each round of a G x width tail in the tree kernel (round j adds
+    G width / 2^(j+1) pairs), True where it runs an add on TREE_SLOTS
+    threads, False where on one."""
+    rounds = width.bit_length() - 1
+    return [(G * width >> (j + 1)) * TREE_SLOTS <= limit
+            for j in range(rounds)]
 
 
 def _halve(acc, G: int, width: int, add):
@@ -322,13 +349,23 @@ def fold_add_tree_plain(acc, G: int, width: int):
     return acc
 
 
+def _tree_counters(G: int, device) -> torch.Tensor:
+    """The tree kernel's per-group counters on `device`, zero between
+    launches (the kernel zeroes what it counted)."""
+    c = _TREE_COUNTERS.get(device)
+    if c is None or c.numel() < G:
+        c = torch.zeros(max(G, 1024), dtype=torch.int32, device=device)
+        _TREE_COUNTERS[device] = c
+    return c
+
+
 def fold_add_tree(acc, G: int, width: int):
     """(G * width, 3, 8) -> (G, 3, 8): each group of `width` lanes (a power
     of two) summed by halving rounds, round j adding lane i + w/2 into lane
     i of the previous round's w lanes (the MSM tails).  Rounds of at least
     ADD_WAVE adds are lanewise fold_add_any launches (counted there); the
-    rest run in fold_add_tree launches of up to 8 rounds each (TREE_LANES
-    lanes a block), bitwise equal to the lanewise chain."""
+    rest (a width of at most 65,536 is left) run in one fold_add_tree
+    launch, bitwise equal to the lanewise chain."""
     _check_points("fold_add_tree", acc)
     if (G <= 0 or width <= 0 or width & (width - 1)
             or acc.shape[0] != G * width):
@@ -339,20 +376,26 @@ def fold_add_tree(acc, G: int, width: int):
     while width > 1 and G * width // 2 >= ADD_WAVE:
         acc = _halve(acc, G, width, fold_add_any)
         width //= 2
+    if width == 1:
+        return acc
     from .._build import check
     lib, stream = _launch_args(acc)
-    while width > 1:
-        out_width = width // min(width, TREE_LANES)
-        acc = acc.contiguous()
-        out = torch.empty((G * out_width, 3, NLIMB), dtype=acc.dtype,
-                          device=acc.device)
-        check(lib.h2_fold_add_tree(acc.data_ptr(), out.data_ptr(), G, width,
-                                   out_width, FQ.mod_words_ptr, stream),
-              "fold_add_tree")
-        fold_add_tree.launches += 1
-        fold_add_tree.shapes[(G, width, out_width)] += 1
-        acc, width = out, out_width
-    return acc
+    acc = acc.contiguous()
+    out = torch.empty((G, 3, NLIMB), dtype=acc.dtype, device=acc.device)
+    partials = counters = None
+    if width > TREE_LANES:
+        partials = torch.empty((G * width // TREE_LANES, 3, NLIMB),
+                               dtype=acc.dtype, device=acc.device)
+        counters = _tree_counters(G, acc.device)
+    check(lib.h2_fold_add_tree(
+        acc.data_ptr(), out.data_ptr(),
+        0 if partials is None else partials.data_ptr(),
+        0 if counters is None else counters.data_ptr(), G, width,
+        tree_slot_limit(acc.device), FQ.mod_words_ptr, stream),
+        "fold_add_tree")
+    fold_add_tree.launches += 1
+    fold_add_tree.shapes[(G, width)] += 1
+    return out
 
 
 fold_add_tree.launches = 0

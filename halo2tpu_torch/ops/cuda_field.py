@@ -1,18 +1,20 @@
-"""Montgomery multiply and power, add / sub / neg mod p and the linear
-scan: the CUDA kernels (csrc/mont_mul.cu, csrc/field_addsub.cu,
+"""Montgomery multiply and power, add / sub / neg mod p and the scans:
+the CUDA kernels (csrc/mont_mul.cu, csrc/field_addsub.cu,
 csrc/field_linscan.cu) and their plain torch versions.  Counterparts of
 halo2tpu/ops/pallas_field.py, of halo2tpu/fields/jfield.py::mont_pow, add,
-sub, neg, _prefix_sum_mod and suffix_sum_mod, and of the scans inside
-halo2tpu/plonk/engine.py::_div_linear_jit and _eval_group_jit.
+sub, neg, _prefix_sum_mod, suffix_sum_mod and _prefix_prod, and of the
+scans inside halo2tpu/plonk/engine.py::_div_linear_jit, _eval_group_jit
+and _gp_chunk_jit.
 
-`mont_mul`, `mont_pow`, `add_sub` (behind `add`, `sub` and `neg`) and
-`linscan` launch their kernels for CUDA tensors and take the plain
-versions only for CPU tensors.  The plain versions work on any device
+`mont_mul`, `mont_pow`, `add_sub` (behind `add`, `sub` and `neg`),
+`linscan` and `prodscan` launch their kernels for CUDA tensors and take the
+plain versions only for CPU tensors.  The plain versions work on any device
 (chip_smoke.py compares them with the kernels on the card;
-`linscan_plain.cuda_calls` counts its runs on CUDA tensors).  Beside its
-count of launches, each wrapper keeps `shapes`, a histogram of what it
-launched: (lanes,), (lanes, "add" | "sub" | "neg") for add_sub, and (n,
-columns, output, "one" | "a", launches) for linscan.
+`linscan_plain.cuda_calls` and `prodscan_plain.cuda_calls` count their runs
+on CUDA tensors).  Beside its count of launches, each wrapper keeps
+`shapes`, a histogram of what it launched: (lanes,), (lanes, "add" | "sub"
+| "neg") for add_sub, and (n, columns, output, "one" | "a" | "prod") for
+linscan, which counts prodscan's launches too (one kernel).
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
@@ -355,24 +357,41 @@ def neg(spec, a):
     return add_sub(spec, NEG, a)
 
 
-# -- the linear scan ---------------------------------------------------------
+
+# -- the scans: sum, linear and product -------------------------------------
 
 SCAN_THREADS = 256     # threads a block (csrc/field_linscan.cu kThreads)
 SCAN_LOG = 8           # log2(SCAN_THREADS): the block scan's rounds
-# elements a thread folds serially: with a product an element (a != 1)
-# short runs keep the serial chain short; a sum (a = 1) is adds only
-SCAN_RUN = 4
+SCAN_LOOK = 5          # log2 of the blocks a look-back window reads (a warp)
+SCAN_KINDS = ("one", "a", "prod")
+# elements a thread folds serially.  A sum is adds only.  With a product
+# an element (the linear and the product scan) a thread's serial chain is
+# a run's fold, the block scan and its rescan: a grid that fits in one wave
+# (SCAN_WAVE blocks of 256 threads) is latency-bound, so short runs; a
+# larger grid is product-bound, and long runs cut the block scan's products
+# an element (8 / run)
 SCAN_RUN_ONE = 16
+SCAN_RUN_SHORT = 4
+SCAN_RUN_LONG = 16
+# blocks of the scan kernel the card runs at once: 2 an SM (its launch
+# bound), 264 on an H100
+SCAN_WAVE = 2 * 132
 
 
-def scan_shapes(n: int, one: bool) -> tuple:
-    """The kernel's schedule for a scan of n elements: (run, blocks a
-    column, run of the carry pass).  A block covers SCAN_THREADS * run
-    elements, the first block padded at its start; the carry pass scans
-    the blocks' totals in one block of SCAN_THREADS threads."""
-    run = SCAN_RUN_ONE if one else SCAN_RUN
-    nb = max(1, -(-n // (SCAN_THREADS * run)))
-    return run, nb, -(-nb // SCAN_THREADS)
+def scan_shapes(n: int, kind: str, cols: int = 1,
+                wave: int = SCAN_WAVE) -> tuple:
+    """The kernel's schedule for a scan of n elements over `cols` columns:
+    (run, blocks a column).  A block covers SCAN_THREADS * run elements,
+    the first block padded at its start with the identity."""
+    def blocks(run):
+        return max(1, -(-n // (SCAN_THREADS * run)))
+
+    if kind == "one":
+        run = SCAN_RUN_ONE
+    else:
+        run = (SCAN_RUN_SHORT if cols * blocks(SCAN_RUN_SHORT) <= wave
+               else SCAN_RUN_LONG)
+    return run, blocks(run)
 
 
 def _mont_limbs(spec, v: int) -> list:
@@ -384,21 +403,85 @@ def _mont_limbs(spec, v: int) -> list:
 _SCAN_POWS: dict = {}
 
 
-def _scan_pows(spec, a: int, run: int, run2: int):
-    """ctypes words the kernel takes: Montgomery a and a^(run 2^k) for k <
-    SCAN_LOG, then A = a^(SCAN_THREADS run) and A^(run2 2^k)."""
-    key = (spec.p, a, run, run2)
+def _scan_pows(spec, a: int, run: int):
+    """ctypes words the kernel takes: Montgomery a, a^(run 2^k) for k <
+    SCAN_LOG (the block scan's rounds) and A^(2^r) for r <= SCAN_LOOK, A =
+    a^(SCAN_THREADS run) (a block's multiplier, the look-back's rounds)."""
+    key = (spec.p, a, run)
     words = _SCAN_POWS.get(key)
     if words is None:
         A = pow(a, SCAN_THREADS * run, spec.p)
         vals = ([a] + [pow(a, run << k, spec.p) for k in range(SCAN_LOG)]
-                + [A] + [pow(A, run2 << k, spec.p) for k in range(SCAN_LOG)])
+                + [pow(A, 1 << r, spec.p) for r in range(SCAN_LOOK + 1)])
         flat = [w for v in vals for w in _mont_limbs(spec, v)]
         words = (ctypes.c_uint32 * len(flat))(*flat)
         if len(_SCAN_POWS) > 256:
             _SCAN_POWS.clear()
         _SCAN_POWS[key] = words
     return words
+
+
+_LIN_POWS: dict = {}
+
+
+def _lin_pows(spec, a: int, run: int, device) -> torch.Tensor:
+    """(SCAN_THREADS, 8) Montgomery a^(run t) on `device`: the linear
+    scan's thread t carries its block's prefix over t runs."""
+    key = (spec.p, a, run, device)
+    t = _LIN_POWS.get(key)
+    if t is None:
+        step, v, flat = pow(a, run, spec.p), 1, []
+        for _ in range(SCAN_THREADS):
+            flat.extend(_mont_limbs(spec, v))
+            v = v * step % spec.p
+        t = i32(torch.tensor(flat, dtype=torch.int64)).reshape(
+            SCAN_THREADS, NLIMB).to(device)
+        if len(_LIN_POWS) > 64:
+            _LIN_POWS.clear()
+        _LIN_POWS[key] = t
+    return t
+
+
+class _LookBack:
+    """The look-back scratch of one device and stream, kept across calls:
+    a ticket counter, then a status word a block, then two values a block.
+    It is zeroed only when it is made; every launch that looks back takes
+    a new epoch (the kernel reads a status word only if it carries it) and
+    the counter's value before it (tickets count on)."""
+
+    def __init__(self):
+        self.cap = 0
+        self.buf = None
+        self.flag_words = 0
+        self.tickets = 0
+        self.epoch = 0
+
+    def take(self, blocks: int, device) -> tuple:
+        """(tickets, flags, values, ticket base, epoch) for a launch of
+        `blocks` blocks."""
+        if blocks > self.cap or self.epoch + 1 >= 1 << 30:
+            self.cap = max(blocks, 2 * self.cap, 1024)
+            self.flag_words = -(-self.cap // 4) * 4
+            self.buf = torch.zeros(4 + self.flag_words + 2 * NLIMB * self.cap,
+                                   dtype=torch.int32, device=device)
+            self.tickets = self.epoch = 0
+        self.epoch += 1
+        ptr = self.buf.data_ptr()
+        return (ptr, ptr + 16, ptr + 4 * (4 + self.flag_words), self.tickets,
+                self.epoch)
+
+
+_LOOKBACK: dict = {}
+_WAVES: dict = {}
+
+
+def _scan_wave(device) -> int:
+    """SCAN_WAVE for the card's SM count."""
+    w = _WAVES.get(device)
+    if w is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        w = _WAVES[device] = 2 * sms
+    return w
 
 
 def linscan_plain(spec, v, a: int = 1, reverse: bool = False,
@@ -432,22 +515,40 @@ def linscan_plain(spec, v, a: int = 1, reverse: bool = False,
 linscan_plain.cuda_calls = 0
 
 
-def linscan(spec, v, a: int = 1, reverse: bool = False,
-            exclusive: bool = False, totals: bool = False):
-    """The linear scan of linscan_plain.  A CUDA tensor launches the kernel
-    (one launch when the scan fits one block of SCAN_THREADS * run rows,
-    else three, two for totals); its (n, 8) rows, or the (n, 8) columns of
-    a (C, n, 8) stack, are read in place at any strides that keep each
-    element 16-byte aligned.  A CPU tensor takes linscan_plain."""
-    if v.device.type == "cpu":
-        return linscan_plain(spec, v, a, reverse, exclusive, totals)
+def prodscan_plain(spec, r, reverse: bool = False, exclusive: bool = False,
+                   totals: bool = False):
+    """x_j = r_j x_(j-1) mod p (x_(-1) = 1) along axis -2 of r ((n, 8) or
+    (C, n, 8), Montgomery), in plain torch: Hillis-Steele rounds of
+    mont_mul_plain.  reverse, exclusive (1 at the first) and totals as in
+    linscan_plain."""
+    if r.device.type == "cuda":
+        prodscan_plain.cuda_calls += 1
+    x = r.flip(-2) if reverse else r
+    n, shift = x.shape[-2], 1
+    while shift < n:
+        x = torch.cat([x[..., :shift, :], mont_mul_plain(
+            spec, x[..., shift:, :], x[..., :n - shift, :])], -2)
+        shift *= 2
+    if totals:
+        return x[..., -1, :].contiguous()
+    if exclusive:
+        one = spec.const("one_mont", r.device).expand(x[..., :1, :].shape)
+        x = torch.cat([one, x[..., :-1, :]], -2)
+    return (x.flip(-2) if reverse else x).contiguous()
+
+
+prodscan_plain.cuda_calls = 0
+
+
+def _scan(spec, v, kind: str, a: int, reverse: bool, exclusive: bool,
+          totals: bool):
+    """One launch of the field_linscan kernel over a CUDA tensor."""
+    name = "prodscan" if kind == "prod" else "linscan"
     if v.device.type != "cuda":
-        raise ValueError(f"linscan: operand on {v.device}")
+        raise ValueError(f"{name}: operand on {v.device}")
     if v.dtype != torch.int32 or v.dim() not in (2, 3) or v.shape[-1] != NLIMB:
-        raise TypeError("linscan: need an (n, 8) or (C, n, 8) int32 limb "
+        raise TypeError(f"{name}: need an (n, 8) or (C, n, 8) int32 limb "
                         "tensor")
-    a %= spec.p
-    one = a == 1
     x = v if v.dim() == 3 else v.unsqueeze(0)
     cols, n = x.shape[0], x.shape[1]
     if (x.stride(2) != 1 or x.data_ptr() % 16 or x.stride(1) % 4
@@ -457,23 +558,59 @@ def linscan(spec, v, a: int = 1, reverse: bool = False,
     out = torch.empty(out_shape, dtype=torch.int32, device=v.device)
     if n == 0 or cols == 0:
         return out
-    run, nb, run2 = scan_shapes(n, one)
-    scratch = (torch.empty(2 * cols * nb * NLIMB, dtype=torch.int32,
-                           device=v.device) if nb > 1 else out)
+    run, nb = scan_shapes(n, kind, cols, _scan_wave(v.device))
+    lin = (_lin_pows(spec, a, run, v.device)
+           if kind == "a" and nb > 1 and not totals else None)
     from .._build import check, lib
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    pows = _scan_pows(spec, a, run, run2)
-    check(lib().h2_field_linscan(
-        x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(),
-        scratch.data_ptr(), n, cols, run, nb, run2, int(reverse),
-        int(exclusive), int(totals), int(one), ctypes.addressof(pows),
-        spec.mod_words_ptr, stream), "field_linscan")
-    launches = 1 if nb == 1 else 2 if totals else 3
-    linscan.launches += launches
+    key = (v.device, stream)
+    look = (0, 0, 0, 0, 0)
+    if nb > 1:
+        state = _LOOKBACK.get(key)
+        if state is None:
+            state = _LOOKBACK[key] = _LookBack()
+        look = state.take(nb * cols, v.device)
+    try:
+        check(lib().h2_field_linscan(
+            x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(), n, cols,
+            run, nb, int(reverse), int(exclusive), int(totals),
+            SCAN_KINDS.index(kind), ctypes.addressof(_scan_pows(spec, a, run)),
+            0 if lin is None else lin.data_ptr(), *look,
+            spec.mod_words_ptr, stream), f"field_linscan ({name})")
+    except RuntimeError:
+        _LOOKBACK.pop(key, None)
+        raise
+    if nb > 1:
+        state.tickets += nb * cols
+    linscan.launches += 1
     mode = "totals" if totals else "exclusive" if exclusive else "full"
-    linscan.shapes[(n, cols, mode, "one" if one else "a", launches)] += 1
+    linscan.shapes[(n, cols, mode, kind)] += 1
     return out
+
+
+def linscan(spec, v, a: int = 1, reverse: bool = False,
+            exclusive: bool = False, totals: bool = False):
+    """The linear scan of linscan_plain.  A CUDA tensor launches the kernel
+    once; its (n, 8) rows, or the (n, 8) columns of a (C, n, 8) stack, are
+    read in place at any strides that keep each element 16-byte aligned.
+    A CPU tensor takes linscan_plain."""
+    if v.device.type == "cpu":
+        return linscan_plain(spec, v, a, reverse, exclusive, totals)
+    a %= spec.p
+    return _scan(spec, v, "one" if a == 1 else "a", a, reverse, exclusive,
+                 totals)
 
 
 linscan.launches = 0
 linscan.shapes = Counter()
+
+
+def prodscan(spec, r, reverse: bool = False, exclusive: bool = False,
+             totals: bool = False):
+    """The product scan of prodscan_plain (prefix products of Montgomery
+    values).  A CUDA tensor takes one launch of the field_linscan kernel,
+    counted in linscan's launches and shapes, at linscan's strides; a CPU
+    tensor takes prodscan_plain."""
+    if r.device.type == "cpu":
+        return prodscan_plain(spec, r, reverse, exclusive, totals)
+    return _scan(spec, r, "prod", 1, reverse, exclusive, totals)

@@ -6,7 +6,7 @@ fixed across every commitment, so each base gets a 256-entry table of
 affine multiples w * P (built once per SRS, on the device), and a
 commitment walks 32 8-bit digit planes: lane (plane, batch, c) adds
 table[digit, r * C + c] for every row r (one fold_mixed launch covers all
-rows), a C -> 1 tree-fold (fold_add_tree: one or two launches) sums each
+rows), a C -> 1 tree-fold (fold_add_tree: one launch) sums each
 group, and a Horner pass over the planes (fold_horner, 8 doublings and an
 add a plane, one launch) combines them.  C is chosen per call (fold_width)
 so that every launch over more than one row has at least LANE_TARGET

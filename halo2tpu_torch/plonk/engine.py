@@ -78,7 +78,6 @@ class TorchEngine:
 
     name = "torch"
     stack_chunk = 64        # columns per batched NTT pass
-    gp_chunk = 8            # vectors per grand-product pass
     numden_chunk = 16       # permutation chunks per numerator pass
     msm_batch = 8           # columns per MSM fold
     _NARROW_PLANES = 8      # digit planes of a bounded (<= 63-bit) column
@@ -370,18 +369,27 @@ class TorchEngine:
 
     # -- grand products ----------------------------------------------------
     def grand_products(self, nums, dens):
-        """Per-vector prefix products of num/den (one batch inversion per
-        chunk of gp_chunk vectors)."""
-        out = []
-        for i in range(0, len(nums), self.gp_chunk):
-            ns = torch.stack(nums[i:i + self.gp_chunk])
-            ds = torch.stack(dens[i:i + self.gp_chunk])
-            m, n = ns.shape[0], ns.shape[1]
-            den_inv = jfield.batch_inv_scan(FR, ds.reshape(m * n, NLIMB))
-            ratios = jfield.mont_mul(FR, ns, den_inv.reshape(m, n, NLIMB))
-            pref = jfield._prefix_prod(FR, ratios.transpose(0, 1))
-            out.extend(pref.transpose(0, 1).unbind(0))
-        return out
+        """Per-vector prefix products of num/den, every vector at once
+        (halo2tpu's _gp_chunk_jit runs chunks of 8): over the stacked
+        denominators an exclusive forward and an exclusive reverse product
+        scan, each column's total from them and one Fermat inversion of all
+        the totals, so that den_inv = prefix * suffix / total; then the
+        inclusive product scan of num * den_inv.  On CUDA three prodscan,
+        four mont_mul and one fe_pow launch.  Inverses and products are
+        unique canonical values, so the prefixes are halo2tpu's bits."""
+        if not nums:
+            return []
+        dens = torch.stack(dens)                          # (C, n, 8)
+        prefix = jfield.prodscan(FR, dens, exclusive=True)
+        suffix = jfield.prodscan(FR, dens, reverse=True, exclusive=True)
+        total_inv = jfield.inv(FR, jfield.mont_mul(FR, prefix[:, -1],
+                                                   dens[:, -1]))
+        del dens
+        den_inv = jfield.mont_mul(FR, jfield.mont_mul(FR, prefix, suffix),
+                                  total_inv[:, None])
+        del prefix, suffix
+        ratios = jfield.mont_mul(FR, torch.stack(nums), den_inv)
+        return list(jfield.prodscan(FR, ratios).unbind(0))
 
     def perm_numden_chunks(self, chunk_cols, chunk_sigmas, omega_pows,
                            beta, gamma, chunk_deltas):

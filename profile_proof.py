@@ -30,8 +30,13 @@ fold_horner at 1, 48, 200 and 392 lanes x 32 planes x 8 doublings and 8 x
 (the tree's part_program, random leaves and challenges), add and mont_mul
 at 32,768 lanes, and the engine's div_linear (2^15 rows), eval_polys (16
 polys of 2^15 rows at one point) and weighted_sum (64 vectors of 2^15
-rows), and for a tree that splits field programs the part programs at
-every sub-program count G.  Each is the median of ROUNDS rounds of CUDA-event means (kernels)
+rows), the linear scan itself at the prefix and suffix sums, a
+div_linear and that evaluation group, fold_add_tree at the warm proof's
+tail shapes (256 x 256, 64 x 1024, 32 x 2048, 96 x 1024) and at 65,536
+lanes in groups of 2-128, the engine's grand_products over 80 vectors of
+2^15 rows and, for a tree that has it, the product scan over them, and
+for a tree that splits field programs the part programs at every
+sub-program count G.  Each is the median of ROUNDS rounds of CUDA-event means (kernels)
 or of synchronized wall times (engine calls); one JSON line.
 
 `profile_run` (also used by chip_smoke.py) profiles any call.
@@ -142,6 +147,9 @@ def _wrappers() -> dict:
 
 
 ROUNDS = 5
+# vectors of the grand products timed by --kernels (the composite proof's
+# permutation chunks and lookups are about 80)
+GP_COLUMNS = 80
 
 
 class _NoBound:
@@ -244,6 +252,14 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
     out[f"mont_mul_L{n}_ms"] = _median_event_ms(
         lambda: cuda_field.mont_mul(jfield.FR, x, y), 2000)
 
+    # the tails, and 65,536 lanes in groups of 2-128 (one round more each:
+    # what a round costs)
+    for G, W in ((256, 256), (64, 1024), (32, 2048), (96, 1024),
+                 *((65536 // w, w) for w in (2, 4, 8, 16, 32, 64, 128))):
+        acc = chip_smoke._rand_points(g, G * W, dev)
+        out[f"fold_add_tree_{G}x{W}_ms"] = _median_event_ms(
+            lambda: cuda_ec.fold_add_tree(acc, G, W), 50)
+
     class Eng:                       # the engine methods, with no SRS
         _encode = TorchEngine._encode
         _enc_scalar = TorchEngine._enc_scalar
@@ -251,6 +267,8 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
         div_linear = TorchEngine.div_linear
         eval_polys = TorchEngine.eval_polys
         weighted_sum = TorchEngine.weighted_sum
+        grand_products = TorchEngine.grand_products
+        gp_chunk = getattr(TorchEngine, "gp_chunk", None)
 
         def __init__(self):
             self.device = dev
@@ -263,10 +281,32 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
     coefs = list(range(3, 3 + 64))
     out[f"div_linear_L{n}_ms"] = _median_wall_ms(
         lambda: eng.div_linear(x, a), 20)
+    # the linear scan's calls through the tree's own wrapper, CUDA events:
+    # the sums, a div_linear and an evaluation group
+    stack = torch.stack(polys)
+    for name, args in ((f"linscan_prefix_sum_L{n}_ms", (x, 1)),
+                       (f"linscan_suffix_sum_L{n}_ms", (x, 1, True)),
+                       (f"linscan_div_linear_L{n}_ms", (x, a, True, True)),
+                       (f"linscan_eval_16x{n}_ms", (stack, a, True, False,
+                                                    True))):
+        out[name] = _median_event_ms(
+            lambda args=args: cuda_field.linscan(jfield.FR, *args), 200)
+    del stack
     out[f"eval_polys_16x{n}_ms"] = _median_wall_ms(
         lambda: eng.eval_polys([(p, a) for p in polys]), 20)
     out[f"weighted_sum_64x{n}_ms"] = _median_wall_ms(
         lambda: eng.weighted_sum(vecs, coefs), 20)
+    del polys, vecs
+    nums = list(chip_smoke._rand_fe(g, GP_COLUMNS * n, dev).reshape(
+        GP_COLUMNS, n, 8))
+    dens = list(chip_smoke._rand_fe(g, GP_COLUMNS * n, dev).reshape(
+        GP_COLUMNS, n, 8))
+    out[f"grand_products_{GP_COLUMNS}x{n}_ms"] = _median_wall_ms(
+        lambda: eng.grand_products(nums, dens), 5)
+    if hasattr(cuda_field, "prodscan"):
+        stack = torch.stack(dens)
+        out[f"prodscan_{GP_COLUMNS}x{n}_ms"] = _median_event_ms(
+            lambda: cuda_field.prodscan(jfield.FR, stack), 20)
     return out
 
 

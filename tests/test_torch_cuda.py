@@ -329,25 +329,42 @@ def _rand_points(m, seed, dev):
 
 
 @pytest.mark.parametrize("G,width", [(2, 8), (3, 16), (5, 512), (1, 2048),
-                                     (520, 256)])
+                                     (520, 256), (256, 256), (64, 1024),
+                                     (32, 2048), (96, 1024), (2032, 256),
+                                     (1, 2), (1, 65536)])
 def test_fold_add_tree_matches_plain(dev, G, width):
-    """Up to 256 lanes a tree launch (512 and 2048: two launches); 520 x 256
-    starts with one lanewise round of 66,560 adds.  Group 0 holds doubling,
-    inverse and identity lanes."""
+    """The warm proof's tail shapes (256 x 256, 64 x 1024, 32 x 2048, 96 x
+    1024), msm()'s (2032 x 256: two lanewise rounds of the add kernel
+    first; 520 x 256: one), widths up to 65,536 in one launch (the last
+    block of each group merging its blocks' sums), and the slot switch a
+    round earlier and later.  Group 0 holds doubling, inverse and identity
+    lanes."""
     acc = _rand_points(G * width, 20 + width, dev)
     half = width // 2
     acc[half] = acc[0]                                        # doubling
-    acc[1 + half] = acc[1]                                    # inverse
-    acc[1 + half, 1] = neg(FQ, acc[1, 1])
-    acc[2, 2] = 0                                             # p identity
-    acc[3 + half, 2] = 0                                      # q identity
-    before = (cuda_ec.fold_add_tree.launches, cuda_ec.fold_add.launches)
-    got = cuda_ec.fold_add_tree(acc, G, width)
-    assert torch.equal(got, cuda_ec.fold_add_tree_plain(acc, G, width))
-    lanewise = 1 if G * half >= cuda_ec.ADD_WAVE else 0
-    trees = 1 if width >> lanewise <= cuda_ec.TREE_LANES else 2
-    assert (cuda_ec.fold_add_tree.launches - before[0],
-            cuda_ec.fold_add.launches - before[1]) == (trees, lanewise)
+    if width >= 8:
+        acc[1 + half] = acc[1]                                # inverse
+        acc[1 + half, 1] = neg(FQ, acc[1, 1])
+        acc[2, 2] = 0                                         # p identity
+        acc[3 + half, 2] = 0                                  # q identity
+    want = cuda_ec.fold_add_tree_plain(acc, G, width)
+    lanewise = 0
+    while G * width >> (lanewise + 1) >= cuda_ec.ADD_WAVE:
+        lanewise += 1
+    wave = cuda_ec.tree_slot_limit(dev)
+    for limit in (wave, 2 * wave, wave // 2):
+        cuda_ec.TREE_SLOT_LIMIT = limit
+        try:
+            before = (cuda_ec.fold_add_tree.launches,
+                      cuda_ec.fold_add.launches)
+            got = cuda_ec.fold_add_tree(acc, G, width)
+        finally:
+            cuda_ec.TREE_SLOT_LIMIT = None
+        assert torch.equal(got, want), limit
+        assert (cuda_ec.fold_add_tree.launches - before[0],
+                cuda_ec.fold_add.launches - before[1]) == (1, lanewise)
+    # the counters of the wide groups are left at zero: again, same bits
+    assert torch.equal(cuda_ec.fold_add_tree(acc, G, width), want)
 
 
 @pytest.mark.parametrize("B,times,planes", [
@@ -496,29 +513,101 @@ def test_field_addsub_kernel_matches_plain(dev, spec, p):
                            cuda_field.neg_plain(spec, x))
 
 
-@pytest.mark.parametrize("n", [1, 3, 1000, 4096, 1 << 15, 1 << 20])
-def test_linscan_kernel_matches_plain(dev, n):
-    """field_linscan at one column: forward and reverse, a = 1 and a
-    random a, every x, the exclusive x and the total, bitwise equal to the
-    plain scan; one launch within a block, else three (two for a total)."""
-    rng = np.random.default_rng(n)
-    v = _rand_stack(rng, (n,)).to(dev)
+def _rand_canonical(rng, shape):
+    """Random field elements below 2^252 (canonical in Fr and Fq), fast."""
+    w = rng.integers(0, 1 << 32, tuple(shape) + (8,), dtype=np.uint32)
+    w[..., 7] &= 0x0FFFFFFF
+    return torch.from_numpy(w.view(np.int32))
+
+
+def _scan_wants(plain, v, reverse):
+    """The plain scan's full, exclusive and total outputs from one run."""
+    full = plain(v, reverse)
+    first = torch.zeros_like(full[..., :1, :]) if plain.zero else (
+        FR.const("one_mont", v.device).expand(full[..., :1, :].shape))
+    if reverse:
+        excl = torch.cat([full[..., 1:, :], first], -2)
+        tot = full[..., 0, :]
+    else:
+        excl = torch.cat([first, full[..., :-1, :]], -2)
+        tot = full[..., -1, :]
+    return {(False, False): full, (True, False): excl, (False, True): tot}
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (1000,), (4096,), (1 << 15,),
+                                   (80, 1 << 15), (1 << 20,)],
+                         ids=["1", "3", "1000", "4096", "32768", "80x32768",
+                              "1048576"])
+def test_linscan_kernel_matches_plain(dev, shape):
+    """field_linscan's sum, linear (a random a) and product scans
+    (linscan, prodscan) over one column or a stack: forward and reverse,
+    every x, the exclusive x and the total, bitwise equal to the plain
+    scans; one launch a call, no run of a plain scan on the card."""
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    v = _rand_canonical(rng, shape).to(dev)
     a_rand = int.from_bytes(rng.bytes(32), "big") % R
+    scans = []
     for a in (1, a_rand):
-        run, nb, _ = cuda_field.scan_shapes(n, a == 1)
+        def plain(x, reverse, a=a):
+            return cuda_field.linscan_plain(FR, x, a, reverse)
+        plain.zero = True
+        scans.append((lambda x, r, e, t, a=a: cuda_field.linscan(
+            FR, x, a, r, e, t), plain))
+
+    def plain_prod(x, reverse):
+        return cuda_field.prodscan_plain(FR, x, reverse)
+    plain_prod.zero = False
+    scans.append((lambda x, r, e, t: cuda_field.prodscan(FR, x, r, e, t),
+                  plain_prod))
+    for kind, (scan, plain) in enumerate(scans):
         for reverse in (False, True):
-            for exclusive, totals in ((False, False), (True, False),
-                                      (False, True)):
+            wants = _scan_wants(plain, v, reverse)
+            for (exclusive, totals), want in wants.items():
                 before = cuda_field.linscan.launches
-                plain = cuda_field.linscan_plain.cuda_calls
-                got = cuda_field.linscan(FR, v, a, reverse, exclusive,
-                                         totals)
-                assert cuda_field.linscan.launches - before == (
-                    1 if nb == 1 else 2 if totals else 3)
-                assert cuda_field.linscan_plain.cuda_calls == plain
-                assert torch.equal(got, cuda_field.linscan_plain(
-                    FR, v, a, reverse, exclusive, totals)), (a, reverse,
-                                                            exclusive, totals)
+                plains = (cuda_field.linscan_plain.cuda_calls,
+                          cuda_field.prodscan_plain.cuda_calls)
+                got = scan(v, reverse, exclusive, totals)
+                assert cuda_field.linscan.launches - before == 1
+                assert (cuda_field.linscan_plain.cuda_calls,
+                        cuda_field.prodscan_plain.cuda_calls) == plains
+                assert torch.equal(got, want), (kind, reverse, exclusive,
+                                                totals)
+
+
+def test_grand_products_on_card_match_cpu(dev):
+    """TorchEngine.grand_products at 2^12 rows, 11 vectors, on the card
+    (three prodscan, four mont_mul and one fe_pow launch, no plain route)
+    and on the CPU, the same bits."""
+    from halo2tpu_torch.fields import jfield
+    from halo2tpu_torch.plonk.engine import TorchEngine
+    rng = np.random.default_rng(31)
+    n = 1 << 12
+    nums = _rand_canonical(rng, (11, n))
+    dens = _rand_canonical(rng, (11, n))
+    dens[..., 0] |= 1                                         # nonzero
+    cpu = TorchEngine.grand_products(None, list(nums), list(dens))
+    before = (cuda_field.linscan.launches, cuda_field.mont_mul.launches,
+              cuda_field.mont_pow.launches)
+    plains = (jfield._prefix_prod_plain.cuda_calls,
+              jfield.batch_inv_scan_plain.cuda_calls,
+              cuda_field.prodscan_plain.cuda_calls)
+    got = TorchEngine.grand_products(None, list(nums.to(dev)),
+                                     list(dens.to(dev)))
+    assert (cuda_field.linscan.launches - before[0],
+            cuda_field.mont_mul.launches - before[1],
+            cuda_field.mont_pow.launches - before[2]) == (3, 4, 1)
+    assert (jfield._prefix_prod_plain.cuda_calls,
+            jfield.batch_inv_scan_plain.cuda_calls,
+            cuda_field.prodscan_plain.cuda_calls) == plains
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+    # batch inversion and the prefix product over columns take the kernel
+    x = dens[0].to(dev)
+    assert torch.equal(jfield.batch_inv_scan(FR, x).cpu(),
+                       jfield.batch_inv_scan_plain(FR, dens[0]))
+    assert torch.equal(jfield._prefix_prod(FR, dens.transpose(0, 1).to(dev))
+                       .cpu(), jfield._prefix_prod_plain(
+                           FR, dens.transpose(0, 1)))
 
 
 def test_linscan_kernel_stacks_match_plain(dev):

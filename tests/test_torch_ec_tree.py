@@ -3,7 +3,10 @@
 fold_horner (the MSM Horner combines) and fold_mixed_tiled_rows (msm()'s
 row steps).  Each against the chain of entries it replaces, against
 halo2tpu (its jpoint.padd halving chain; its host Horner routes) and host
-G1 arithmetic, with identity, doubling and inverse lanes.  Exact
+G1 arithmetic, with identity, doubling and inverse lanes; and
+fold_add_tree's kernel schedule (which rounds run an add on four slots,
+the slots' steps, the last block's merge of a wide group) written out in
+torch against the plain chain and halo2tpu's fold_add_any chain.  Exact
 equality."""
 import jax.numpy as jnp
 import numpy as np
@@ -83,6 +86,234 @@ def test_fold_add_tree_refuses_bad_groups(G, width, lanes):
     acc = affine_to_device([G1_GEN] * lanes, "cpu")
     with pytest.raises(ValueError, match="power of two"):
         cuda_ec.fold_add_tree(acc, G, width)
+
+
+# -- fold_add_tree's schedule (csrc/ec_fold.cu::fold_add_tree_kernel) -------
+# A slot round runs each add on cuda_ec.TREE_SLOTS threads in the steps
+# below (tree_add4): their kind, "S" (fe_sqr) or "M" (fe_mul), and slot by
+# slot (value, operand, operand).  X1 .. Z2 are the lanes' coordinates in
+# shared memory; the adds and subtractions between steps (Z1+Z2, zw, h, hh,
+# rr, ox, vx) run on every slot into registers; each product is kept in
+# shared memory at TREE_KEPT's index, which later products reuse once it is
+# dead (read into registers, or no longer needed).
+TREE_ADD = (
+    ("S0", "S", (("z1z1", "Z1", "Z1"), ("z2z2", "Z2", "Z2"),
+                 ("zz", "Z1+Z2", "Z1+Z2"))),
+    ("A1", "M", (("u1", "X1", "z2z2"), ("y1z2", "Y1", "Z2"),
+                 ("u2", "X2", "z1z1"), ("y2z1", "Y2", "Z1"))),
+    ("A2", "M", (("i", "hh", "hh"), ("s1", "y1z2", "z2z2"),
+                 ("oz", "zw", "h"), ("s2", "y2z1", "z1z1"))),
+    ("A3", "M", (("j", "h", "i"), ("v", "u1", "i"), ("r2", "rr", "rr"))),
+    ("A4", "M", (("rvx", "rr", "vx"), ("s1j", "s1", "j"))),
+)
+TREE_KEPT = {"z1z1": 0, "z2z2": 1, "zz": 2, "u1": 3, "y1z2": 4, "u2": 5,
+             "y2z1": 6, "i": 7, "s1": 8, "oz": 9, "s2": 10, "j": 0, "v": 1,
+             "r2": 2, "rvx": 4, "s1j": 5}
+# what every slot holds in registers: the lanes' coordinates it reads, the
+# linear values, and the products it reads before they are reused
+TREE_REGS = {"after A1": ("u1", "u2"), "after A2": ("s1", "s2")}
+
+
+def _tree_add4(p, q, log: list):
+    """tree_add4 in torch over every add at once: the steps on their slots,
+    each kept operand read where the kernel keeps it (and checked not yet
+    overwritten there), the adds and subtractions between them, and the
+    identity, doubling and cancelling lanes as masks."""
+    def add(a, b):
+        return tjf.add(tjf.FQ, a, b)
+
+    def sub(a, b):
+        return tjf.sub(tjf.FQ, a, b)
+
+    env = {"X1": p[:, 0], "Y1": p[:, 1], "Z1": p[:, 2], "X2": q[:, 0],
+           "Y2": q[:, 1], "Z2": q[:, 2]}
+    env["Z1+Z2"] = add(env["Z1"], env["Z2"])
+    regs = set(env)
+    kept: dict = {}
+
+    def read(name):
+        if name not in regs:
+            assert kept.get(TREE_KEPT[name]) == name, f"{name} overwritten"
+        return env[name]
+
+    def hold(*names):           # values every slot reads into registers
+        for name in names:
+            read(name)
+            regs.add(name)
+
+    def linear(name, value):
+        env[name] = value
+        regs.add(name)
+
+    after = {
+        "A1": lambda: (hold(*TREE_REGS["after A1"]),
+                       linear("h", sub(read("u2"), read("u1"))),
+                       linear("zw", sub(sub(read("zz"), read("z1z1")),
+                                        read("z2z2"))),
+                       linear("hh", add(read("h"), read("h")))),
+        "A2": lambda: (hold(*TREE_REGS["after A2"]),
+                       linear("rr", add(*[sub(read("s2"), read("s1"))] * 2))),
+        "A3": lambda: (linear("ox", sub(sub(read("r2"), read("j")),
+                                        add(read("v"), read("v")))),
+                       linear("vx", sub(read("v"), read("ox")))),
+    }
+    for name, kind, products in TREE_ADD:
+        assert len(products) <= cuda_ec.TREE_SLOTS
+        assert kind == "M" or all(a == b for _, a, b in products)
+        done = [(out, tjf.mont_mul(tjf.FQ, read(a), read(b)))
+                for out, a, b in products]
+        for slot, (out, value) in enumerate(done):
+            kept[TREE_KEPT[out]] = out
+            env[out] = value
+            log.append((name, kind, slot, out))
+        if name in after:
+            after[name]()
+    out = torch.stack([read("ox"), sub(read("rvx"),
+                                       add(read("s1j"), read("s1j"))),
+                       read("oz")], dim=1)
+    eq = (env["u1"] == env["u2"]).all(-1)
+    same = (env["s1"] == env["s2"]).all(-1)
+    ident = tjp.identity_points((p.shape[0],), "cpu")
+    out = torch.where((eq & same)[:, None, None], tjp.pdbl(p), out)
+    out = torch.where((eq & ~same)[:, None, None], ident, out)
+    out = torch.where((q[:, 2] == 0).all(-1)[:, None, None], p, out)
+    return torch.where((p[:, 2] == 0).all(-1)[:, None, None], q, out)
+
+
+def _tree_schedule(acc, G: int, width: int, limit: int, log: list):
+    """fold_add_tree_kernel in torch: blocks of TREE_LANES lanes, each
+    loading kernel_per_block sets of m = min(width, TREE_LANES) lanes (set
+    j = lanes s + k width / m of group j // (width / m)) by the kernel's
+    index math; halving rounds on four slots or one thread as
+    tree_round_slots says; for width > TREE_LANES each block's sum a
+    partial and the last block of a group merging the group's partials in
+    the tree's later rounds.  Returns (G, 3, 8) and logs (round, slots)."""
+    L = cuda_ec.TREE_LANES
+    m = min(width, L)
+    per_set = width // m
+    sets = G * per_set
+    per_block = L // m
+    blocks = -(-sets // per_block)
+    slots = cuda_ec.tree_round_slots(G, width, limit)
+    ident = tjp.identity_points((1,), "cpu")[0]
+    q = torch.arange(L)
+    j = torch.arange(blocks)[:, None] * per_block + q // m    # (blocks, L)
+    g = j // per_set
+    lane = g * width + (j - g * per_set) + (q % m) * per_set
+    valid = j < sets
+    buf = torch.where(valid[..., None, None],
+                      acc[torch.where(valid, lane, 0)], ident)
+
+    def rounds(buf, m, nsets, first):
+        for r, h in enumerate(m >> (k + 1) for k in range(m.bit_length()
+                                                          - 1)):
+            a = torch.tensor([s * m + k for s in range(nsets)
+                              for k in range(h)])
+            p_, q_ = buf[:, a].reshape(-1, 3, 8), buf[:, a + h].reshape(
+                -1, 3, 8)
+            four = slots[first + r]
+            log.append((first + r, four))
+            added = (_tree_add4(p_, q_, []) if four else tjp.padd(p_, q_))
+            buf = buf.clone()
+            buf[:, a] = added.reshape(buf.shape[0], -1, 3, 8)
+        return buf
+
+    buf = rounds(buf, m, per_block, 0)
+    if per_set == 1:
+        return buf[:, ::m].reshape(-1, 3, 8)[:G]
+    partials = buf[:, 0].reshape(G, per_set, 3, 8)            # block = set
+    out = rounds(partials, per_set, 1, m.bit_length() - 1)
+    return out[:, 0]
+
+
+def _tree_points(G: int, width: int, seed: int):
+    """G x width random Jacobian points (coordinates < 2^252: the formulas
+    do not need points on the curve).  Group 0: a doubling pair (lanes 0
+    and half), a cancelling pair (1 and 1 + half), an identity p (lane 2)
+    and an identity q (3 + half); group 1 every lane equal (every round
+    doubles); group 2 each lane i + half the negative of lane i (the first
+    round cancels, the rest add identities)."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, (G * width, 3, 8),
+                                             dtype=np.uint32)
+    w[..., 7] &= 0x0FFFFFFF
+    acc = torch.from_numpy(w.view(np.int32))
+    half = width // 2
+    if width >= 8:
+        acc[half] = acc[0]
+        acc[1 + half] = acc[1]
+        acc[1 + half, 1] = tjf.neg(tjf.FQ, acc[1, 1])
+        acc[2, 2] = 0
+        acc[3 + half, 2] = 0
+    if G >= 3:
+        acc[width:2 * width] = acc[width]
+        g2 = acc[2 * width:3 * width]
+        g2[half:] = g2[:half]
+        g2[half:, 1] = tjf.neg(tjf.FQ, g2[:half, 1])
+    return acc
+
+
+def _jax_chain(acc, G: int, width: int):
+    """halo2tpu's chain: pallas_ec.fold_add_any (interpret mode) a round,
+    over 512-lane pieces (one shape, so one compile), limb-major."""
+    from halo2tpu.ops.pallas_ec import fold_add_any
+    piece = 512
+    cur = convert.points_to_limb_major(acc)                 # (3, 16, L)
+    ident = convert.points_to_limb_major(
+        tjp.identity_points((piece,), "cpu"))
+    w = width
+    while w > 1:
+        a4 = cur.reshape(3, 16, G, w)
+        p = a4[..., :w // 2].reshape(3, 16, -1)
+        q = a4[..., w // 2:].reshape(3, 16, -1)
+        outs = []
+        for i in range(0, p.shape[-1], piece):
+            pp, qq = ident.copy(), ident.copy()
+            k = min(piece, p.shape[-1] - i)
+            pp[..., :k], qq[..., :k] = p[..., i:i + k], q[..., i:i + k]
+            outs.append(np.asarray(fold_add_any(jnp.asarray(pp),
+                                                jnp.asarray(qq)))[..., :k])
+        cur = np.concatenate(outs, -1)
+        w //= 2
+    return cur
+
+
+@pytest.mark.parametrize("G,width", [(1, 2), (1, 256), (1, 2048), (3, 4),
+                                     (3, 1024), (3, 2048), (64, 2),
+                                     (64, 64), (64, 1024)])
+def test_fold_add_tree_schedule_matches_plain_and_halo2tpu(G, width):
+    """The tree kernel's schedule at a wave's slot limit (67,584 threads:
+    every round of these tails on four slots but 64 x 1024's first) and at
+    64 threads (the wide rounds on one thread each), against
+    fold_add_tree_plain and halo2tpu's fold_add_any chain, bitwise."""
+    acc = _tree_points(G, width, 130 + G + width)
+    want = cuda_ec.fold_add_tree_plain(acc, G, width)
+    for limit in (132 * 4 * 128, 64):
+        log: list = []
+        got = _tree_schedule(acc, G, width, limit, log)
+        assert [four for _, four in log] == cuda_ec.tree_round_slots(
+            G, width, limit)
+        assert torch.equal(got, want), limit
+    if G >= 3:       # the doubling group and the cancelling group
+        assert device_to_affine(want[1:2]) == device_to_affine(
+            cuda_ec.fold_dbl_any(acc[width:width + 1],
+                                 width.bit_length() - 1))
+        assert (want[2, 2] == 0).all()
+    jax_want = _jax_chain(acc, G, width)
+    assert np.array_equal(convert.points_to_limb_major(want), jax_want)
+
+
+def test_tree_round_slots_switch_at_a_wave():
+    """A round runs on four slots when its adds, four threads each, fit in
+    one wave of 67,584 threads: the warm proof's tails switch after one
+    (96 x 1024: two) one-thread rounds; msm()'s 2032 x 64 after two."""
+    wave = 132 * 4 * 128
+    rule = cuda_ec.tree_round_slots
+    assert rule(256, 256, wave) == [False] + [True] * 7
+    assert rule(64, 1024, wave) == [False] + [True] * 9
+    assert rule(32, 2048, wave) == [False] + [True] * 10
+    assert rule(96, 1024, wave) == [False] * 2 + [True] * 8
+    assert rule(2032, 64, wave) == [False] * 2 + [True] * 4
+    assert rule(1, 2, wave) == [True]
 
 
 def _partials(B: int, planes: int, seed: int):

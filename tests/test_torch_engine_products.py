@@ -41,3 +41,22 @@ def test_grand_products_and_evaluation(engines):
                                   rng.permutation(N)], axis=-1)
                         for _ in range(3)]).astype(np.int32)
     _eq(je.sigma_from_mapping(mapping), te.sigma_from_mapping(mapping))
+
+
+def test_grand_products_all_vectors_at_once(engines):
+    """11 numerator/denominator pairs (more than one of halo2tpu's chunks
+    of 8): the port's one pass over the stack (column totals, one
+    inversion of all of them, the ratios' product scan) equals
+    JaxEngine.grand_products, and each prefix ends in prod(num / den)."""
+    je, te, _ = engines
+    rng = np.random.default_rng(43)
+    nums = _ints(rng, 11)
+    dens = [[1 + v % (R - 1) for v in d] for d in _ints(rng, 11)]
+    jn, jd = je.from_ints_stack(nums), je.from_ints_stack(dens)
+    got = te.grand_products([_t(v) for v in jn], [_t(v) for v in jd])
+    _eq(je.grand_products(jn, jd), got)
+    for g, n_, d_ in zip(got, nums, dens):
+        acc = 1
+        for a, b in zip(n_, d_):
+            acc = acc * a * pow(b, -1, R) % R
+        assert te.to_ints(g)[-1] == acc

@@ -1,6 +1,8 @@
 """halo2tpu_torch field arithmetic against halo2tpu's jfield (XLA on CPU)
 and the Pallas mont_mul (interpret mode), mont_pow and inv against
-jfield's, and the JAX <-> port converters.
+jfield's, the prefix products and batch inversion (the blocked plain
+routes and the product-scan routes) against jfield's, and the JAX <->
+port converters.
 Exact equality: these are finite-field values."""
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,22 @@ def test_scans_match_jfield():
     _same(jjf.batch_inv_scan(jjf.FR, aj), tjf.batch_inv_scan(tjf.FR, at))
     _same(jjf._prefix_prod(jjf.FR, aj), tjf._prefix_prod(tjf.FR, at))
     _same(jjf.suffix_sum_mod(jjf.FR, aj), tjf.suffix_sum_mod(tjf.FR, at))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_scan_routes_match_jfield(field):
+    """The kernel routes of batch_inv_scan and _prefix_prod (written with
+    prodscan: here its plain version), as CUDA tensors take them (the grand
+    products over Fr, keygen's window-table normalisation over Fq), against
+    halo2tpu's batch_inv_scan and _prefix_prod."""
+    p, sj, st = SPECS[field]
+    rng = np.random.default_rng(19)
+    xs = [1 + v for v in _vals(rng, p - 1, 40)]
+    aj, at = _pair(sj, xs)
+    _same(jjf.batch_inv_scan(sj, aj), tjf._batch_inv_prodscan(st, at))
+    _same(jjf._prefix_prod(sj, aj), tjf._prefix_prod_scan(st, at))
+    assert st.decode(tjf._batch_inv_prodscan(st, at)) == [
+        pow(x, -1, p) for x in xs]
 
 
 def test_prefix_prod_batched_columns():

@@ -1,14 +1,16 @@
-"""The linear scan (ops/cuda_field.py::linscan, on CPU tensors its plain
-version) and the engine methods built on it and on field programs
-(TorchEngine.div_linear, eval_polys, weighted_sum) against halo2tpu's
-_prefix_sum_mod, suffix_sum_mod, _div_linear_jit, _eval_group_jit and
-_wsum_jit (XLA on CPU), at n in {1, 2, 3, 16, 1000, 2^12}, multipliers 1,
-p - 1 and random, one and several columns; and the field_linscan kernel's
-schedule (csrc/field_linscan.cu at cuda_field.scan_shapes: the padded
-chunks, each thread's run, the block scan with its powers, the carry pass
-and the rescan, forward and reverse), written out in torch, against the
-plain scan.  Exact equality of raw Montgomery limbs: these are
-finite-field values."""
+"""The scans (ops/cuda_field.py::linscan and prodscan, on CPU tensors
+their plain versions) and the engine methods built on them and on field
+programs (TorchEngine.div_linear, eval_polys, weighted_sum) against
+halo2tpu's _prefix_sum_mod, suffix_sum_mod, _prefix_prod, batch_inv_scan,
+_div_linear_jit, _eval_group_jit and _wsum_jit (XLA on CPU), at n in {1,
+2, 3, 16, 1000, 2^12}, multipliers 1, p - 1 and random, one and several
+columns; and the field_linscan kernel's single-pass schedule
+(csrc/field_linscan.cu at cuda_field.scan_shapes: the padded chunks, each
+thread's run, the block scan with its powers, the decoupled look-back over
+windows of blocks and the rescan, forward and reverse, for the sum, the
+linear and the product scan), written out in torch, against the plain
+scans.  Exact equality of raw Montgomery limbs: these are finite-field
+values."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,53 +144,158 @@ def test_weighted_sum_matches_halo2tpu(engine, m):
           jeng._wsum_jit(j[:1], jjf.FR.encode(coefs[:1])))
 
 
+# -- prodscan against halo2tpu's prefix products and batch inversion --------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 37, 1000])
+def test_prodscan_matches_jfield(n):
+    """prodscan (on CPU tensors prodscan_plain), every direction and output,
+    over an (n, 8) vector and a (C, n, 8) stack, against halo2tpu's
+    _prefix_prod (forward inclusive; the reverse ones through flips, the
+    exclusive ones shifted with a leading 1) and batch_inv_scan (the
+    exclusive prefix times the exclusive suffix times the total's inverse
+    is the port's kernel route, written with prodscan)."""
+    from halo2tpu_torch.fields import jfield as tjf
+    C = 3
+    t, _ = _pair([1 + v % (R - 1) for v in _vals(600 + n, C * n)], (C, n))
+    one = FR.encode([1], "cpu")
+    for c in range(C):
+        j = jnp.asarray(convert.to_jax_limbs(t[c]))
+        fwd = jjf._prefix_prod(jjf.FR, j)
+        rev = jnp.flip(jjf._prefix_prod(jjf.FR, jnp.flip(j, 0)), 0)
+        want = {(False, False): fwd, (True, False): rev,
+                (False, True): np.concatenate(
+                    [convert.to_jax_limbs(one), np.asarray(fwd)[:-1]]),
+                (True, True): np.concatenate(
+                    [np.asarray(rev)[1:], convert.to_jax_limbs(one)])}
+        for (reverse, exclusive), w in want.items():
+            _same(cuda_field.prodscan(FR, t[c], reverse, exclusive), w)
+            _same(cuda_field.prodscan(FR, t, reverse, exclusive)[c], w)
+        _same(cuda_field.prodscan(FR, t[c], totals=True), np.asarray(fwd)[-1])
+        _same(cuda_field.prodscan(FR, t, totals=True)[c], np.asarray(fwd)[-1])
+        _same(cuda_field.prodscan(FR, t, reverse=True, totals=True)[c],
+              np.asarray(fwd)[-1])
+        _same(tjf._batch_inv_prodscan(FR, t[c]), jjf.batch_inv_scan(jjf.FR, j))
+    # the prefix product over the columns behind axis 0, as _prefix_prod
+    # takes them on CUDA
+    _same(tjf._prefix_prod_scan(FR, t.transpose(0, 1)),
+          np.stack([np.asarray(jjf._prefix_prod(jjf.FR, jnp.asarray(
+              convert.to_jax_limbs(t[c])))) for c in range(C)], 1))
+
+
 # -- the kernel's schedule, written out in torch -----------------------------
 
-def _fold(x, v, a_m):
-    """x * a + v (a_m: a's Montgomery form, None for a = 1)."""
-    return add_plain(FR, x if a_m is None else mont_mul_plain(FR, x, a_m), v)
+KINDS = {"one": ("one", 1), "random": ("a", MULTS["random"]),
+         "product": ("prod", 1)}
 
 
-def _pass(v, n, nb, run, threads, totals, reverse, exclusive, carry, a):
-    """One launch of field_linscan_kernel over v (C, n, 8): grid (nb, C),
-    `threads` threads a block, each `run` elements; logical position q = j
-    + pad with pad = nb * chunk - n zeros first; j is row j (forward) or
-    row n - 1 - j (reverse).  Returns the block totals (C, nb, 8) or the
-    output (C, n, 8)."""
-    C = v.shape[0]
+def _identity(kind):
+    return _mont(1) if kind == "prod" else torch.zeros(8, dtype=torch.int32)
+
+
+def _fold(kind, x, v, a_m):
+    """x_(j-1) -> x_j: x + v, x a + v (a_m: a's Montgomery form) or x v."""
+    if kind == "one":
+        return add_plain(FR, x, v)
+    if kind == "a":
+        return add_plain(FR, mont_mul_plain(FR, x, a_m), v)
+    return mont_mul_plain(FR, x, v)
+
+
+def _combine(kind, left, right, pw):
+    """A left segment's x carried over a right one's (pw: a^(its length))."""
+    if kind == "one":
+        return add_plain(FR, left, right)
+    if kind == "a":
+        return add_plain(FR, mont_mul_plain(FR, left, pw), right)
+    return mont_mul_plain(FR, left, right)
+
+
+def _schedule(v, kind, a, reverse, exclusive, totals, threads, window, rng,
+              wave):
+    """field_linscan_kernel's one launch over v (C, n, 8) at `threads`
+    threads a block and look-back windows of `window` blocks: grid of nb
+    blocks a column in ticket order; logical position q = j + pad with pad
+    = nb * chunk - n identity elements first; j is row j (forward) or row
+    n - 1 - j (reverse).  Each block folds its threads' runs, scans the
+    run totals (Hillis-Steele), publishes its aggregate and looks back:
+    rng decides which blocks before it had published their inclusive
+    prefix by then (block 0 always), as concurrent blocks would.  `wave`:
+    the blocks a wave of the card holds, which sets the run.  Returns the
+    totals (C, 8) or the output (C, n, 8)."""
+    C, n = v.shape[0], v.shape[1]
+    run, nb = cuda_field.scan_shapes(n, kind, C, wave)
     chunk = threads * run
     pad = nb * chunk - n
     assert 0 <= pad < chunk
-    a_m = None if a == 1 else _mont(a)
-    steps = [None if a == 1 else _mont(pow(a, run << k, R))
-             for k in range(threads.bit_length() - 1)]
+    ident = _identity(kind)
+    a_m = _mont(a) if kind == "a" else None
+    steps = [_mont(pow(a, run << k, R)) for k in range(threads.bit_length() - 1)]
+    A = pow(a, chunk, R)
+    look = [_mont(pow(A, 1 << r, R)) for r in range(window.bit_length())]
     rows = torch.arange(n)
     order = rows.flip(0) if reverse else rows            # row of each j
-    seq = torch.cat([torch.zeros((C, pad, 8), dtype=torch.int32),
-                     v[:, order]], 1).reshape(C, nb, threads, run, 8)
-    T = torch.zeros((C, nb, threads, 8), dtype=torch.int32)
+    seq = torch.cat([ident.expand(C, pad, 8), v[:, order]], 1).reshape(
+        C, nb, threads, run, 8)
+    j_of = (torch.arange(nb * chunk) - pad).reshape(nb, threads, run)
+    # each thread's run total, padded elements skipped
+    T = ident.expand(C, nb, threads, 8).clone()
     for s in range(run):
-        T = _fold(T, seq[:, :, :, s], a_m)
-    cin = (torch.zeros((C, nb, 8), dtype=torch.int32) if carry is None
-           else carry)
-    if carry is not None:
-        T = T.clone()
-        T[:, :, 0] = add_plain(FR, T[:, :, 0], cin if a == 1 else
-                               mont_mul_plain(FR, cin, steps[0]))
+        j = j_of[:, :, s]
+        vs = seq[:, :, :, s]
+        start = (j == 0) | ((j > 0) & (s == 0))
+        T = torch.where((j < 0)[None, :, :, None], T, torch.where(
+            start[None, :, :, None], vs, _fold(kind, T, vs, a_m)))
     for k, step in enumerate(steps):
         d = 1 << k
-        prev = T[:, :, :threads - d]
-        T = torch.cat([T[:, :, :d], add_plain(
-            FR, T[:, :, d:],
-            prev if a == 1 else mont_mul_plain(FR, prev, step))], 2)
+        T = torch.cat([T[:, :, :d], _combine(kind, T[:, :, :threads - d],
+                                             T[:, :, d:], step)], 2)
+    total = T[:, :, -1]                                   # (C, nb, 8)
+    agg, incl = total, total.clone()
+    E = ident.expand(C, nb, 8).clone()
+    for b in range(1, nb):
+        # which blocks before b show their inclusive prefix (block 0 does)
+        shown = torch.from_numpy(rng.random(b) < 0.4)
+        shown[0] = True
+        end, first_window, mult = b, True, None
+        while True:
+            js = torch.arange(end - window, end)
+            st_incl = (js < 0) | shown[js.clamp(min=0)]
+            x = torch.where(st_incl[None, :, None], incl[:, js.clamp(min=0)],
+                            agg[:, js.clamp(min=0)])
+            x = torch.where((js < 0)[None, :, None], ident, x)
+            h = int(st_incl.nonzero().max()) if st_incl.any() else -1
+            x = torch.where((torch.arange(window) < h)[None, :, None],
+                            ident, x)
+            for r in range(window.bit_length() - 1):      # the shuffles
+                x = _combine(kind, x[:, 0::2], x[:, 1::2], look[r])
+            x = x[:, 0]
+            if first_window:
+                e, mult = x, look[-1]
+            else:
+                e = _combine(kind, x, e, mult)
+                if kind == "a":
+                    mult = mont_mul_plain(FR, mult, look[-1])
+            first_window = False
+            if h >= 0:
+                break
+            end -= window
+        E[:, b] = e
+        incl[:, b] = _combine(kind, e, total[:, b], look[0])
     if totals:
-        return T[:, :, -1]
-    X = torch.cat([cin[:, :, None], T[:, :, :-1]], 2)
+        return incl[:, -1]
+    lin = torch.stack([_mont(pow(a, run * t, R)) for t in range(threads)])
+    S = torch.cat([ident.expand(C, nb, 1, 8), T[:, :, :-1]], 2)
+    Eb = E[:, :, None].expand(C, nb, threads, 8)
+    X = _combine(kind, Eb, S, lin[None, None])
+    X[:, 0] = S[:, 0]                                     # block 0: no prefix
+    X[:, :, 0] = E                                        # thread 0
     outs = []
     for s in range(run):
+        vs = seq[:, :, :, s]
         if exclusive:
             outs.append(X)
-        X = _fold(X, seq[:, :, :, s], a_m)
+        X = torch.where((j_of[:, :, s] < 0)[None, :, :, None], X,
+                        _fold(kind, X, vs, a_m))
         if not exclusive:
             outs.append(X)
     q = torch.stack(outs, 3).reshape(C, nb * chunk, 8)[:, pad:]
@@ -197,56 +304,59 @@ def _pass(v, n, nb, run, threads, totals, reverse, exclusive, carry, a):
     return out
 
 
-def _schedule(v, a, reverse, exclusive, totals, threads):
-    """The C entry h2_field_linscan: one launch for one block, else block
-    totals, their scan with multiplier a^chunk (one block, run2 a thread,
-    exclusive) and the scan with each block's carry."""
-    n = v.shape[1]
-    run, nb, run2 = cuda_field.scan_shapes(n, a == 1)
-    if nb == 1:
-        out = _pass(v, n, 1, run, threads, totals, reverse, exclusive, None,
-                    a)
-        return out[:, 0] if totals else out
-    tot = _pass(v, n, nb, run, threads, True, reverse, False, None, a)
-    A = pow(a, threads * run, R)
-    if totals:
-        return _pass(tot, nb, 1, run2, threads, True, False, False, None,
-                     A)[:, 0]
-    carry = _pass(tot, nb, 1, run2, threads, False, False, True, None, A)
-    return _pass(v, n, nb, run, threads, False, reverse, exclusive, carry, a)
-
-
 MODES = {"full": (False, False), "exclusive": (True, False),
          "totals": (False, True)}
 
 
 def test_scan_shapes_cover_the_rows():
+    """Every row in a block, the first block padded; with products, short
+    runs while the grid fits one wave (a proof's div_linear), long ones
+    beyond (its evaluation groups and product scans over dozens of
+    columns)."""
     for n in [1, 3, 1000, 1 << 15, (1 << 20) + 1, 1 << 22]:
-        for one in (False, True):
-            run, nb, run2 = cuda_field.scan_shapes(n, one)
-            chunk = cuda_field.SCAN_THREADS * run
-            assert (nb - 1) * chunk < n <= nb * chunk
-            assert run2 * cuda_field.SCAN_THREADS >= nb
+        for kind in cuda_field.SCAN_KINDS:
+            for cols in (1, 16, 80):
+                run, nb = cuda_field.scan_shapes(n, kind, cols)
+                chunk = cuda_field.SCAN_THREADS * run
+                assert (nb - 1) * chunk < n <= nb * chunk
+    shapes = cuda_field.scan_shapes
+    assert shapes(1 << 15, "a") == (4, 32)
+    assert shapes(1 << 15, "a", 16) == (16, 8)
+    assert shapes(1 << 15, "prod", 80) == (16, 8)
+    assert shapes(1 << 20, "a") == (16, 256)
+    assert shapes(1 << 15, "one", 1) == (16, 8)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("mult", ["one", "random"])
+@pytest.mark.parametrize("mult", ["one", "random", "product"])
 @pytest.mark.parametrize("n,threads", [(1000, 256), (1 << 12, 256),
                                        (5000, 256), (3, 4), (1000, 4),
                                        (1, 4)],
                          ids=["1000", "4096", "5000", "3-t4", "1000-t4",
                               "1-t4"])
 def test_scan_schedule_matches_plain(monkeypatch, n, threads, mult, mode):
-    """The kernel's schedule at its 256 threads a block (one to five
-    blocks a column) and at 4 (up to 63 blocks, the carry pass with runs of
-    16 totals a thread), two columns, forward and reverse, equals the
-    plain scan."""
+    """The kernel's single-pass schedule (one launch: runs, the block scan,
+    the look-back, the rescan) at its 256 threads a block (one to five
+    blocks a column) and at 4 (up to 63 blocks, looking back 32 and 4
+    blocks a window, with random blocks already inclusive), short and long
+    runs, two columns, forward and reverse, for the sum, a random
+    multiplier and the product, equals the plain scan."""
     monkeypatch.setattr(cuda_field, "SCAN_THREADS", threads)
-    a = MULTS[mult]
+    kind, a = KINDS[mult]
     exclusive, totals = MODES[mode]
-    v, _ = _pair(_vals(500 + n, 2 * n), (2, n))
+    vals = _vals(500 + n, 2 * n)
+    if kind == "prod":
+        vals = [1 + x % (R - 1) for x in vals]
+    v, _ = _pair(vals, (2, n))
+    rng = np.random.default_rng(n * threads)
     for reverse in (False, True):
-        want = linscan_plain(FR, v, a, reverse, exclusive, totals)
-        got = _schedule(v, a, reverse, exclusive, totals, threads)
-        assert torch.equal(got, want), (reverse, cuda_field.scan_shapes(
-            n, a == 1))
+        if kind == "prod":
+            want = cuda_field.prodscan_plain(FR, v, reverse, exclusive,
+                                             totals)
+        else:
+            want = linscan_plain(FR, v, a, reverse, exclusive, totals)
+        # a wave of 264 blocks and of 1 (long runs at the small sizes)
+        for window, wave in ((32, 264), (4, 264), (4, 1)):
+            got = _schedule(v, kind, a, reverse, exclusive, totals, threads,
+                            window, rng, wave)
+            assert torch.equal(got, want), (reverse, window, wave)

@@ -10,8 +10,9 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              spill) and its SASS instruction counts (cuobjdump), from
              which fold_add's instruction bound is taken after phase 2.
   2. kernels each kernel against its plain torch version, bitwise, at the
-             main paths' shapes (fe_pow at 1, 16 and 4,097 lanes with
-             exponents 0, 1, 2 and p - 2, Fr and Fq; field_prog on the
+             main paths' shapes (fe_pow at 1, 16, 80 and 4,097 lanes with
+             exponents 0, 1, 2 and p - 2, Fr and Fq, timed at 1, 80 and
+             4,097 lanes; field_prog on the
              RSA-SHA256 and the composite part programs at 2^15 rows,
              split into sub-programs as the prover compiles them, also
              against the per-op route it replaces, at most
@@ -20,11 +21,16 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              sum program over 64 vectors against its mont_mul and
              tree-sum chain; field_linscan at n = 1, 3, 1000 and 2^20
              (the sum, a multiplier and the product scan, every
-             direction and output, one launch a call), timed at a
+             direction and output, one launch a call) and the product
+             scan over Fr and Fq at odd n, one column and 80, timed at a
              div_linear of 2^15 rows, an evaluation group of 16 x 2^15,
              the suffix and prefix sums, the grand products' product
              scans over 80 columns of 2^15 rows (each against the chain
-             it replaces) and 2^20 rows; the NTT's
+             it replaces, and at runs of 4, 16 and 64 beside the rule's
+             32), keygen's batch inversions over Fq (the exclusive
+             product scan of 255 x 16, 255 x 1024 and 2^22 lanes, also at
+             the run the rule did not pick, 4 or 32) and 2^20 rows; the
+             NTT's
              forward, inverse, coset and h-chunk entries at n = 2^4-2^10
              with C = 1, 3, 8 columns and batch-less, and (timed) at n =
              2^15 with C = 64, 60, 34 and 1, 2^10 x 3 and 2^20 x 1; add /
@@ -162,11 +168,17 @@ SOURCES = {"mont_mul": "halo2tpu_torch/csrc/mont_mul.cu",
            "field_prog": "halo2tpu_torch/csrc/field_prog.cu",
            "ntt": "halo2tpu_torch/csrc/ntt.cu",
            "field_addsub": "halo2tpu_torch/csrc/field_addsub.cu",
-           "field_linscan": "halo2tpu_torch/csrc/field_linscan.cu"}
+           "field_linscan": "halo2tpu_torch/csrc/field_linscan.cu",
+           "prodscan": "halo2tpu_torch/csrc/field_linscan.cu"}
 # the proofs' bytes at their seeds (RSA-SHA256 k=15, seed 4; the composite
-# k=15, seed 8), unchanged since the kernels that prove them were ported
+# k=15, seed 8), unchanged since the kernels that prove them were ported.
+# halo2tpu's HostEngine proof of the RSA circuit at the same seed has the
+# same sha256 (tests/golden/rsa_k15_host_proof.json, which
+# tests/test_torch_rsa_golden.py holds to this pin)
 RSA_PROOF_SHA256 = ("2567c205a68a04a28dbd9df0fc0d98e9"
                     "7a3589709dfd10e98b87a76f3b2cbeb9")
+# the message rsa_circuit signs
+RSA_MESSAGE = bytes(range(256)) * 4
 COMPOSITE_PROOF_SHA256 = ("d7ee4f98ff4892a518e5757eda473410"
                           "864e3126f606cb9a17a2c3f51361afa1")
 
@@ -823,10 +835,11 @@ def phase_kernels(report: dict, card: Card) -> None:
         "multiply bound")
 
     # fe_pow (cuda_field.mont_pow), Fr and Fq: exponents 0, 1, 2 and p - 2
-    # at 1, 16 and 4,097 lanes (the edge values 0, 1, p - 1 and R mod p
-    # first), bitwise against the plain version; timed at one lane with p -
-    # 2 (a proof's inversions) against the chain it replaces, one mont_mul
-    # launch a squaring or product
+    # at 1, 16, 80 and 4,097 lanes (the edge values 0, 1, p - 1 and R mod p
+    # first), bitwise against the plain version; timed with p - 2 (a proof's
+    # inversions) at 1, 80 (the grand products' one inversion of an RSA
+    # proof) and 4,097 lanes, at one lane also against the chain it
+    # replaces (one mont_mul launch a squaring or product)
     def chain_pow(spec, a, e):
         result, base = spec.const("one_mont", dev).expand(a.shape), a
         while e:
@@ -841,7 +854,7 @@ def phase_kernels(report: dict, card: Card) -> None:
         edge = torch.from_numpy(jfield.ints_to_limbs(
             [0, 1, p - 1, (1 << 256) % p]).copy()).to(dev)
         a = torch.cat([edge, _rand_fe(g, 4093, dev)])
-        for lanes in (1, 16, 4097):
+        for lanes in (1, 16, 80, 4097):
             for e in (0, 1, 2, p - 2):
                 err = _max_abs_err(cuda_field.mont_pow(spec, a[:lanes], e),
                                    cuda_field.mont_pow_plain(spec, a[:lanes],
@@ -851,19 +864,24 @@ def phase_kernels(report: dict, card: Card) -> None:
                                          f"kernel != plain ({err})")
         e = p - 2
         sq, mul = e.bit_length() - 1, bin(e).count("1")
-        x = _rand_fe(g, 1, dev)
-        name = f"fe_pow {fname} L1 p-2"
-        check("fe_pow", name, lambda s=spec, x=x, e=e:
-              cuda_field.mont_pow(s, x, e),
-              lambda s=spec, x=x, e=e: cuda_field.mont_pow_plain(s, x, e),
-              200, lat.floor(card.bound(64, sq * MUL32_PER_SQR
-                                        + mul * MUL32_PER_MONT),
-                             {"squarings": sq, "products": 1}),
-              lanes=1, squarings=sq, products=mul, chain_launches=sq + mul,
-              chain_case=f"{name} chain")
-        _chain_case(cases, f"{name} chain",
-                    lambda s=spec, x=x, e=e: chain_pow(s, x, e),
-                    cuda_field.mont_pow(spec, x, e), 20)
+        for lanes in (1, 80, 4097):
+            x = _rand_fe(g, lanes, dev)
+            name = f"fe_pow {fname} L{lanes} p-2"
+            extra = ({"chain_launches": sq + mul,
+                      "chain_case": f"{name} chain"} if lanes == 1 else {})
+            check("fe_pow", name, lambda s=spec, x=x, e=e:
+                  cuda_field.mont_pow(s, x, e),
+                  lambda s=spec, x=x, e=e: cuda_field.mont_pow_plain(s, x, e),
+                  200 if lanes < 4097 else 50,
+                  lat.floor(card.bound(64 * lanes, lanes * (
+                      sq * MUL32_PER_SQR + mul * MUL32_PER_MONT)),
+                            {"squarings": sq, "products": 1}),
+                  plain_runs=3 if lanes == 1 else 1, lanes=lanes,
+                  squarings=sq, products=mul, **extra)
+            if lanes == 1:
+                _chain_case(cases, f"{name} chain",
+                            lambda s=spec, x=x, e=e: chain_pow(s, x, e),
+                            cuda_field.mont_pow(spec, x, e), 20)
 
     # field_prog: the RSA-SHA256 and the composite part programs at n =
     # 2^15 rows (a k=15 proof's part), split into groups_for(n) sub-programs
@@ -1032,6 +1050,16 @@ def phase_kernels(report: dict, card: Card) -> None:
                 lambda x, r, e, t: cuda_field.linscan_plain(jfield.FR, x, a,
                                                             r, e, t))
 
+    def at_run(run, f, *args):
+        """f(*args) with the product scan's kernel at runs of `run` (its
+        rule's runs swapped out)."""
+        saved = cuda_field.STREAM_RUN_SHORT, cuda_field.STREAM_RUN_LONG
+        cuda_field.STREAM_RUN_SHORT = cuda_field.STREAM_RUN_LONG = run
+        try:
+            return f(*args)
+        finally:
+            cuda_field.STREAM_RUN_SHORT, cuda_field.STREAM_RUN_LONG = saved
+
     scan_kinds = (("one", 1), ("a", a_r), ("prod", 1))
     for n in (1, 3, 1000, 1 << 20):
         v = _rand_fe(g, n, dev)
@@ -1040,9 +1068,11 @@ def phase_kernels(report: dict, card: Card) -> None:
             for reverse in (False, True):
                 for exclusive, totals in ((False, False), (True, False),
                                           (False, True)):
-                    before = cuda_field.linscan.launches
+                    before = (cuda_field.linscan.launches
+                              + cuda_field.prodscan.launches)
                     got = fn(v, reverse, exclusive, totals)
-                    if cuda_field.linscan.launches != before + 1:
+                    if (cuda_field.linscan.launches
+                            + cuda_field.prodscan.launches != before + 1):
                         raise AssertionError(f"field_linscan n={n} {kind}: "
                                              "not one launch")
                     err = _max_abs_err(got, plain(v, reverse, exclusive,
@@ -1052,9 +1082,30 @@ def phase_kernels(report: dict, card: Card) -> None:
                             f"field_linscan n={n} {kind} a={a} reverse="
                             f"{reverse} exclusive={exclusive} totals="
                             f"{totals}: kernel != plain ({err})")
+    # the product scan over Fr and Fq (keygen's window table) at odd n, one
+    # column and 80, forward and reverse, every output
+    for spec in (jfield.FR, jfield.FQ):
+        for n, cols in ((255, 80), (4097, 1), (4097, 80), (n_q + 3, 1),
+                        (n_q + 3, 80)):
+            r = _rand_fe(g, n * cols, dev).reshape(cols, n, 8)
+            for reverse in (False, True):
+                for exclusive, totals in ((False, False), (True, False),
+                                          (False, True)):
+                    err = _max_abs_err(
+                        cuda_field.prodscan(spec, r, reverse, exclusive,
+                                            totals),
+                        cuda_field.prodscan_plain(spec, r, reverse,
+                                                  exclusive, totals))
+                    if err:
+                        raise AssertionError(
+                            f"prodscan p={spec.p % 1000} {cols} x {n} "
+                            f"reverse={reverse} exclusive={exclusive} "
+                            f"totals={totals}: kernel != plain ({err})")
+            del r
     log("kernels: field_linscan bitwise equal to its plain versions at n = "
         "1, 3, 1000, 2^20 (sum, linear, product; 2 directions, 3 outputs), "
-        "one launch a call")
+        "one launch a call; the product scan over Fr and Fq at 255 x 80, "
+        "4097 x 1 and 80, 32771 x 1 and 80")
     v = _rand_fe(g, n_q, dev)
     polys = _rand_fe(g, 16 * n_q, dev).reshape(16, n_q, 8)
     big = _rand_fe(g, 1 << 20, dev)
@@ -1067,6 +1118,10 @@ def phase_kernels(report: dict, card: Card) -> None:
         return jfield._prefix_prod_plain(jfield.FR, x.transpose(0, 1)
                                          ).transpose(0, 1)
 
+    # keygen's window tables (ops/msm.py::precompute_window_table): one
+    # batch inversion over 255 x 16 (k = 4), 255 x 1024 (k = 10) and 128 x
+    # 2^15 (k = 15) Fq lanes, whose exclusive prefix product is timed here
+    tables = {m: _rand_fe(g, m, dev) for m in (255 * 16, 255 * 1024, 1 << 22)}
     scan_cases = (
         ("div_linear L32768", v, "a", a_r, True, True, False,
          lambda: _chain_div_linear(v, a_r)),
@@ -1080,23 +1135,35 @@ def phase_kernels(report: dict, card: Card) -> None:
          lambda: chain_prefix_prod(gp)),
         ("prodscan exclusive reverse 80 x 32768", gp, "prod", 1, True, True,
          False, None),
+        *((f"prodscan fq exclusive L{m}", t, "prod fq", 1, False, True,
+           False, None) for m, t in tables.items()),
         ("total L1048576", big, "a", a_r, False, False, True, None),
         ("full L1048576", big, "a", a_r, False, False, False, None))
     for label, x, kind, a, reverse, exclusive, totals, chain in scan_cases:
         elems = x.numel() // 8
         cols = x.shape[0] if x.dim() == 3 else 1
         out_bytes = cols * 32 if totals else elems * 32
-        name = f"field_linscan {label}"
+        kernel = "prodscan" if kind.startswith("prod") else "field_linscan"
+        name = label if kernel == "prodscan" else f"field_linscan {label}"
         extra = {"chain_case": f"{name} chain"} if chain else {}
-        run, nb = cuda_field.scan_shapes(elems // cols, kind, cols,
-                                         cuda_field._scan_wave(dev))
-        fn, plain = scan_of(kind, a)
-        check("field_linscan", name,
+        if kernel == "prodscan":
+            run, nb = cuda_field.stream_shapes(elems // cols, cols,
+                                               cuda_field._stream_wave(dev))
+        else:
+            run, nb = cuda_field.scan_shapes(elems // cols, kind, cols,
+                                             cuda_field._scan_wave(dev))
+        if kind == "prod fq":
+            fn = lambda x, r, e, t: cuda_field.prodscan(jfield.FQ, x, r, e, t)
+            plain = lambda x, r, e, t: cuda_field.prodscan_plain(
+                jfield.FQ, x, r, e, t)
+        else:
+            fn, plain = scan_of(kind, a)
+        check(kernel, name,
               lambda x=x, f=fn, r=reverse, e=exclusive, t=totals:
                   f(x, r, e, t),
               lambda x=x, f=plain, r=reverse, e=exclusive, t=totals:
                   f(x, r, e, t),
-              200 if elems < 1 << 20 else 50,
+              200 if elems < 1 << 20 else 20,
               card.bound(elems * 32 + out_bytes,
                          0 if kind == "one" else elems * MUL32_PER_MONT),
               plain_runs=1, rows=elems // cols, columns=cols, kind=kind,
@@ -1106,6 +1173,24 @@ def phase_kernels(report: dict, card: Card) -> None:
         if chain:
             _chain_case(cases, f"{name} chain", chain,
                         fn(x, reverse, exclusive, totals), 20)
+        if kernel != "prodscan":
+            continue
+        # the product scans also at the runs the rule did not pick: 4 (its
+        # short runs, for grids that fit one wave), 16, 32 (its long ones)
+        # and 64 at 80 x 2^15, 4 or 32 at keygen's single columns
+        alts = ((4, 16, 32, 64) if cols > 1 else (4, 32))
+        checks[kernel][-1]["alts"] = {}
+        for k in alts:
+            if k == run:
+                continue
+            case = f"{name} run {k}"
+            checks[kernel][-1]["alts"][f"run_{k}"] = case
+            _chain_case(cases, case,
+                        lambda x=x, f=fn, r=reverse, e=exclusive, t=totals,
+                        k=k: at_run(k, f, x, r, e, t),
+                        fn(x, reverse, exclusive, totals),
+                        200 if elems < 1 << 20 else 20)
+    del tables
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
     # (npad = 2^15, one shared table and 8 scalar vectors): a full batch
@@ -1327,6 +1412,7 @@ def phase_kernels(report: dict, card: Card) -> None:
                 "ntt": "halo2tpu/ops/ntt.py:69",
                 "field_addsub": "halo2tpu/fields/jfield.py:283",
                 "field_linscan": "halo2tpu/fields/jfield.py:400",
+                "prodscan": "halo2tpu/fields/jfield.py:419",
                 "fold_mixed": "halo2tpu/ops/pallas_ec.py:218",
                 "fold_mixed_tiled": "halo2tpu/ops/pallas_ec.py:291",
                 "fold_mixed_tiled_rows": "halo2tpu/ops/pallas_ec.py:291",
@@ -1377,13 +1463,14 @@ def phase_kernels(report: dict, card: Card) -> None:
         report[name].update(
             latency_floor_ms=report[name]["cases"][0]["latency_floor_ms"],
             product_latency=lat.summary())
-    for row in report["fold_horner"]["cases"] + report["fold_add_tree"][
-            "cases"]:
+    for row in (report["fe_pow"]["cases"] + report["fold_horner"]["cases"]
+                + report["fold_add_tree"]["cases"]):
         log(f"kernel {row['case']}: latency floor "
             f"{row['latency_floor_ms']:.4f} ms ({row['floor_chain']}), "
             f"kernel / floor {row['ms'] / row['latency_floor_ms']:.2f}, "
             f"kernel / bound {row['ms'] / row['bound_ms']:.2f}")
-    for row in report["field_linscan"]["cases"]:
+    for row in report["field_linscan"]["cases"] + report["prodscan"][
+            "cases"]:
         log(f"kernel {row['case']}: kernel / bound "
             f"{row['ms'] / row['bound_ms']:.2f} ({row['bound_by']}), "
             f"{row['blocks']} blocks of runs of {row['run']}")
@@ -1420,6 +1507,7 @@ def _wrappers() -> dict:
             "ntt": ntt.ntt_kernel,
             "field_addsub": cuda_field.add_sub,
             "field_linscan": cuda_field.linscan,
+            "prodscan": cuda_field.prodscan,
             "fold_mixed": cuda_ec.fold_mixed,
             "fold_mixed_tiled": cuda_ec.fold_mixed_tiled,
             "fold_mixed_tiled_rows": cuda_ec.fold_mixed_tiled_rows,
@@ -1480,6 +1568,7 @@ SHAPE_KEYS = {"mont_mul": "lanes", "fe_pow": "lanes",
               "field_prog": "program x rows x instructions x groups",
               "ntt": "n x C x passes", "field_addsub": "lanes x op",
               "field_linscan": "n x columns x output x kind",
+              "prodscan": "n x columns x output x kind",
               "fold_mixed": "lanes x C x rows",
               "fold_dbl_any": "lanes x times", "fold_mixed_tiled": "lanes",
               "fold_mixed_tiled_rows": "lanes x C x rows",
@@ -1493,6 +1582,7 @@ KERNEL_OF = {"mont_mul": "mont_mul_kernel<false>",
              "ntt": "ntt_pass_kernel<3>",
              "field_addsub": "field_addsub_kernel",
              "field_linscan": "field_linscan_kernel<1>",
+             "prodscan": "field_linscan_stream_kernel",
              "fold_mixed": "fold_mixed_kernel",
              "fold_mixed_tiled": "fold_mixed_tiled_kernel",
              "fold_mixed_tiled_rows": "fold_mixed_tiled_rows_kernel",
@@ -1692,9 +1782,8 @@ def rsa_circuit():
     from halo2tpu_torch.circuits.rsa_sha256 import RSASha256Circuit
     with open(os.path.join(ROOT, "tests/golden/rsa_key_2048.json")) as f:
         key = json.load(f)
-    msg = bytes(range(256)) * 4
-    sig = _pkcs1v15_sha256_sign(key["p"], key["q"], key["e"], msg)
-    return RSASha256Circuit(msg, key["p"] * key["q"], sig)
+    sig = _pkcs1v15_sha256_sign(key["p"], key["q"], key["e"], RSA_MESSAGE)
+    return RSASha256Circuit(RSA_MESSAGE, key["p"] * key["q"], sig)
 
 
 def phase_slice(report: dict, cache_dir: str):
@@ -1780,7 +1869,8 @@ def phase_slice(report: dict, cache_dir: str):
     log(f"slice: peak CUDA memory {peak / 2**30:.2f} GiB")
     log(f"slice: a warm proof launches field_addsub "
         f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
-        f"field_linscan {per_warm['field_linscan']}, field_prog {by_prog}")
+        f"field_linscan {per_warm['field_linscan']}, prodscan "
+        f"{per_warm['prodscan']}, field_prog {by_prog}")
     log(f"slice: launches over keygen + 3 proofs {json.dumps(launches)}")
     log(f"slice: launches per warm proof {json.dumps(per_warm)}; mont_mul "
         f"at one lane {one_lane}, at 32,768 lanes "
@@ -1802,11 +1892,12 @@ def phase_slice(report: dict, cache_dir: str):
         raise AssertionError("slice: cold proof does not verify")
     _record_path(report, "rsa_k15_keygen_and_3_proofs", launches,
                  ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
-                  "field_linscan", "fold_mixed", "fold_add", "fold_add_any", "fold_add_tree",
-                  "fold_horner", "fold_dbl_any"))
+                  "field_linscan", "prodscan", "fold_mixed", "fold_add",
+                  "fold_add_any", "fold_add_tree", "fold_horner",
+                  "fold_dbl_any"))
     report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
                          quotient_s=tr.phases["quotient"])
-    report["field_linscan"].update(
+    report["prodscan"].update(
         grand_products_launches_per_warm_proof=gp_calls[1],
         grand_products_s=tr.phases["grand_products"])
     report["field_prog"].update(warm_proof_s=warm,
@@ -2050,7 +2141,8 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     by_prog = _field_prog_by_program(warm_shapes["field_prog"])
     log(f"composite: a warm proof launches field_addsub "
         f"{per_warm['field_addsub']}, mont_mul {per_warm['mont_mul']}, "
-        f"field_linscan {per_warm['field_linscan']}, field_prog {by_prog}")
+        f"field_linscan {per_warm['field_linscan']}, prodscan "
+        f"{per_warm['prodscan']}, field_prog {by_prog}")
     if by_prog.get("part", 0) != parts or parts != 8:
         raise AssertionError(f"composite: field_prog launches {by_prog} in a "
                              f"warm proof, {parts} parts")
@@ -2066,10 +2158,11 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
         raise AssertionError("composite: verifies with nullifier_seed ^ 1")
     _record_path(report, "composite_k15_keygen_and_3_proofs", launches,
                  ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
-                  "field_linscan", "fold_mixed", "fold_add_tree", "fold_horner"))
+                  "field_linscan", "prodscan", "fold_mixed", "fold_add_tree",
+                  "fold_horner"))
     for name, n in per_warm.items():
         report[name]["composite_launches_per_warm_proof"] = n
-    report["field_linscan"].update(
+    report["prodscan"].update(
         composite_grand_products_launches_per_warm_proof=gp_calls[1],
         composite_grand_products_s=tr.phases["grand_products"])
     report["ntt"].update(composite_advice_ntt_s=tr.phases["advice_ntt"],
@@ -2149,8 +2242,9 @@ def main() -> int:
         ntt1 = _build.resources["ntt_pass_kernel<1>"]
         report["ntt"].update(registers_rb1=ntt1["registers"],
                              spill_bytes_rb1=ntt1["spill_bytes"])
-        scans = {k: _build.resources[f"field_linscan_kernel<{i}>"]
-                 for i, k in enumerate(("sum", "linear", "product"))}
+        scans = {"sum": _build.resources["field_linscan_kernel<0>"],
+                 "linear": _build.resources["field_linscan_kernel<1>"],
+                 "product": _build.resources["field_linscan_stream_kernel"]}
         report["field_linscan"].update(
             registers_by_kind={k: r["registers"] for k, r in scans.items()},
             spill_bytes_by_kind={k: r["spill_bytes"]
@@ -2158,7 +2252,8 @@ def main() -> int:
         for kernel in ("ntt_pass_kernel<3>", "ntt_pass_kernel<1>",
                        "fold_horner_kernel", "fold_add_tree_kernel",
                        "field_linscan_kernel<0>", "field_linscan_kernel<1>",
-                       "field_linscan_kernel<2>", "mont_chain_kernel"):
+                       "field_linscan_stream_kernel", "mont_chain_kernel",
+                       "mont_pow_kernel"):
             res = _build.resources[kernel]
             log(f"kernel {kernel}: {res['registers']} registers, "
                 f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} "

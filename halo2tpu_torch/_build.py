@@ -32,7 +32,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # the __global__ functions of csrc/, as ptxas names them (mangled)
 KERNELS = ("mont_mul_kernel", "mont_pow_kernel", "mont_chain_kernel",
            "field_prog_kernel",
-           "field_addsub_kernel", "field_linscan_kernel", "ntt_pass_kernel",
+           "field_addsub_kernel", "field_linscan_kernel",
+           "field_linscan_stream_kernel", "ntt_pass_kernel",
            "fold_mixed_kernel", "fold_mixed_tiled_kernel",
            "fold_mixed_tiled_rows_kernel", "fold_add_kernel",
            "fold_add_tree_kernel", "fold_dbl_kernel", "fold_horner_kernel")
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "h2_field_linscan": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I64, _I32,
                          _I32, _I32, _I32, _P, _P, _P, _P, _P,
                          ctypes.c_ulonglong, ctypes.c_uint, _P, _P],
+    "h2_field_linscan_stream": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I64,
+                                _I32, _I32, _I32, _P, _P, _P,
+                                ctypes.c_ulonglong, ctypes.c_uint, _P, _P],
     "h2_ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                     _I32, _P, _P],
     "h2_fold_mixed": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32, _P,

@@ -20,23 +20,44 @@
 // fori_loop over the exponent's bits that every Fermat inversion runs
 // (jfield.inv: a^(p-2)), which the port ran as one 1-lane mont_mul launch
 // per product and per squaring (380 launches for Fr, 363 for Fq).  Bound:
-// latency.  The inversions of a proof are 1-lane calls, and a^e is a
-// serial chain of bit_length(e) - 1 squarings and popcount(e) products
-// (253 + 127 for Fr's p - 2, 253 + 110 for Fq's) that no lane can split.
-// Design: one thread a lane walks the exponent's bits from the lowest up,
-// the same square-and-multiply as the loop it replaces (result *= base on a
-// set bit, then base squared unless it was the top bit), with result and
-// base in registers and the exponent a __grid_constant__ parameter, so the
-// whole chain is one launch.
+// latency.  The inversions of a proof are calls of one to a few dozen
+// lanes, and a^e is a serial chain of bit_length(e) - 1 squarings and
+// popcount(e) products (253 + 127 for Fr's p - 2, 253 + 110 for Fq's) that
+// no lane can split.  Design: two warps a block of 32 lanes, the whole
+// chain one launch: the squaring warp computes base^(2^k) in turn and hands
+// each one a set bit needs to the product warp through a ring of kRing
+// slots in shared memory, each slot with two named barriers (full: the
+// squaring warp arrives, the product warp waits; empty: the other way
+// round), so the products run beside the squarings and the path is the
+// squarings, then one product.  The two warps sit on different schedulers;
+// lanes of one warp on the two chains would diverge and take turns.  One
+// thread a lane (both chains on one path) and lockstep pairs of lanes (both
+// running fe_mul every step, the path bit_length(e) products) were slower at
+// 1, 80 and 4,097 lanes (PERF.md, row 10).
 #include "field.cuh"
 
 namespace {
 
-// An exponent: eight little-endian words and its bit length.
+// An exponent: eight little-endian words, its bit length and popcount.
 struct Exponent {
   uint32_t w[H2_LIMBS];
   int nbits;
+  int ones;
 };
+
+constexpr int kRing = 7;   // slots; named barriers 1..7 full, 8..14 empty
+
+__device__ __forceinline__ bool exp_bit(const Exponent& E, int k) {
+  return (E.w[k >> 5] >> (k & 31)) & 1u;
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
 
 template <bool kSquare>
 __global__ void mont_mul_kernel(const uint32_t* __restrict__ a,
@@ -52,19 +73,50 @@ __global__ void mont_mul_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-__global__ void mont_pow_kernel(const uint32_t* __restrict__ a,
-                                uint32_t* __restrict__ out, long long n,
-                                const __grid_constant__ Exponent E,
-                                const __grid_constant__ Modulus M) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    Fe base = fe_load(a + i * H2_LIMBS);
-    Fe result = fe_const(M.one);
+// Two warps, lanes blockIdx.x * 32 + l: warp 0 squares, warp 1 multiplies.
+// The m-th set bit's power goes to slot m % kRing; the squaring warp waits
+// for the slot to be empty (item m - kRing read) before it writes item m.
+// The first product is by one: skipped (a canonical x times one is x).
+__global__ void __launch_bounds__(64)
+mont_pow_kernel(const uint32_t* __restrict__ a,
+                     uint32_t* __restrict__ out, long long n,
+                     const __grid_constant__ Exponent E,
+                     const __grid_constant__ Modulus M) {
+  __shared__ uint4 ring[kRing][32][2];
+  const int lane = threadIdx.x & 31;
+  const long long i = blockIdx.x * 32LL + lane;
+  const bool live = i < n;
+  if (threadIdx.x < 32) {
+    Fe base = live ? fe_load(a + i * H2_LIMBS) : fe_zero();
+    int m = 0;
     for (int k = 0; k < E.nbits; k++) {
-      if ((E.w[k >> 5] >> (k & 31)) & 1u) result = fe_mul(result, base, M);
+      if (exp_bit(E, k)) {
+        const int slot = m % kRing;
+        if (m >= kRing) bar_wait(1 + kRing + slot);
+        ring[slot][lane][0] = make_uint4(base.v[0], base.v[1], base.v[2],
+                                         base.v[3]);
+        ring[slot][lane][1] = make_uint4(base.v[4], base.v[5], base.v[6],
+                                         base.v[7]);
+        __threadfence_block();
+        bar_arrive(1 + slot);
+        m++;
+      }
       if (k + 1 < E.nbits) base = fe_sqr(base, M);
     }
-    fe_store(out + i * H2_LIMBS, result);
+  } else {
+    Fe result = fe_const(M.one);
+    for (int m = 0; m < E.ones; m++) {
+      const int slot = m % kRing;
+      bar_wait(1 + slot);
+      const uint4 lo = ring[slot][lane][0], hi = ring[slot][lane][1];
+      if (m + kRing < E.ones) {
+        __threadfence_block();
+        bar_arrive(1 + kRing + slot);
+      }
+      const Fe x = {{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+      result = m == 0 ? x : fe_mul_inline(result, x, M);
+    }
+    if (live) fe_store(out + i * H2_LIMBS, result);
   }
 }
 
@@ -121,14 +173,18 @@ extern "C" int h2_mont_pow(const void* a, void* out, long long n,
                            const uint32_t* mod, void* stream) {
   const Modulus M = modulus_from_words(mod);
   Exponent E;
-  for (int i = 0; i < H2_LIMBS; i++) E.w[i] = exp[i];
-  E.nbits = nbits;
-  const int threads = 128;
-  if (n > 0) {
-    mont_pow_kernel<<<(unsigned)grid_for(n, threads), threads, 0,
-                      (cudaStream_t)stream>>>((const uint32_t*)a,
-                                              (uint32_t*)out, n, E, M);
+  E.ones = 0;
+  for (int i = 0; i < H2_LIMBS; i++) {
+    E.w[i] = exp[i];
+    E.ones += __builtin_popcount(exp[i]);
   }
+  E.nbits = nbits;
+  if (nbits < 0 || nbits > 256 || n > 0x3FFFFFFFLL * 32)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    mont_pow_kernel<<<(unsigned)((n + 31) / 32), 64, 0,
+                           (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (uint32_t*)out, n, E, M);
   return (int)cudaGetLastError();
 }
 

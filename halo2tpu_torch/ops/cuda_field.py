@@ -14,7 +14,7 @@ plain versions only for CPU tensors.  The plain versions work on any device
 on CUDA tensors).  Beside its count of launches, each wrapper keeps
 `shapes`, a histogram of what it launched: (lanes,), (lanes, "add" | "sub"
 | "neg") for add_sub, and (n, columns, output, "one" | "a" | "prod") for
-linscan, which counts prodscan's launches too (one kernel).
+linscan and prodscan.
 
 Field constants come from a halo2tpu_torch.fields.jfield.FieldSpec.
 """
@@ -159,10 +159,14 @@ def mont_pow_plain(spec, a, e: int):
     return result
 
 
+FE_POW_RING = 7        # kRing: the slots between the kernel's two warps
+
+
 def mont_pow(spec, a, e: int):
     """a^e lanewise, (..., 8) int32 limbs, 0 <= e < 2^256.  A CUDA tensor
-    takes one launch of the kernel (the whole square-and-multiply chain);
-    a CPU tensor takes mont_pow_plain."""
+    takes one launch of the kernel (the whole square-and-multiply chain on
+    two warps a block of 32 lanes: csrc/mont_mul.cu); a CPU tensor takes
+    mont_pow_plain."""
     if not 0 <= e < 1 << 256:
         raise ValueError("mont_pow: exponent out of [0, 2^256)")
     if a.device.type == "cpu":
@@ -363,13 +367,13 @@ def neg(spec, a):
 SCAN_THREADS = 256     # threads a block (csrc/field_linscan.cu kThreads)
 SCAN_LOG = 8           # log2(SCAN_THREADS): the block scan's rounds
 SCAN_LOOK = 5          # log2 of the blocks a look-back window reads (a warp)
-SCAN_KINDS = ("one", "a", "prod")
+SCAN_KINDS = ("one", "a")   # field_linscan_kernel's kinds: sum, linear
 # elements a thread folds serially.  A sum is adds only.  With a product
-# an element (the linear and the product scan) a thread's serial chain is
-# a run's fold, the block scan and its rescan: a grid that fits in one wave
-# (SCAN_WAVE blocks of 256 threads) is latency-bound, so short runs; a
-# larger grid is product-bound, and long runs cut the block scan's products
-# an element (8 / run)
+# an element (the linear scan) a thread's serial chain is a run's fold, the
+# block scan and its rescan: a grid that fits in one wave (SCAN_WAVE blocks
+# of 256 threads) is latency-bound, so short runs; a larger grid is
+# product-bound, and long runs cut the block scan's products an element
+# (8 / run)
 SCAN_RUN_ONE = 16
 SCAN_RUN_SHORT = 4
 SCAN_RUN_LONG = 16
@@ -380,9 +384,9 @@ SCAN_WAVE = 2 * 132
 
 def scan_shapes(n: int, kind: str, cols: int = 1,
                 wave: int = SCAN_WAVE) -> tuple:
-    """The kernel's schedule for a scan of n elements over `cols` columns:
-    (run, blocks a column).  A block covers SCAN_THREADS * run elements,
-    the first block padded at its start with the identity."""
+    """field_linscan_kernel's schedule for a scan of n elements over `cols`
+    columns: (run, blocks a column).  A block covers SCAN_THREADS * run
+    elements, the first block padded at its start with zeros."""
     def blocks(run):
         return max(1, -(-n // (SCAN_THREADS * run)))
 
@@ -442,6 +446,33 @@ def _lin_pows(spec, a: int, run: int, device) -> torch.Tensor:
     return t
 
 
+# -- the product scan's kernel (field_linscan_stream_kernel) ----------------
+
+STREAM_THREADS = 128   # threads a unit (kUnitThreads)
+STREAM_MAX_RUN = 64    # the longest run (kStreamMaxRun)
+# elements a thread folds serially: short runs while the grid fits one wave
+# (STREAM_WAVE units: latency-bound), long ones beyond (product-bound: the
+# unit's scan costs about 6 / run products an element beside the two of the
+# fold and the refold)
+STREAM_RUN_SHORT = 4
+STREAM_RUN_LONG = 32
+# units of the stream kernel the card runs at once: 5 an SM (its launch
+# bound, kMinUnits), 660 on an H100
+STREAM_WAVE = 5 * 132
+
+
+def stream_shapes(n: int, cols: int = 1, wave: int = STREAM_WAVE) -> tuple:
+    """The stream kernel's schedule for a product scan of n elements over
+    `cols` columns: (run, units a column).  A unit covers STREAM_THREADS *
+    run elements, the first unit padded at its start with ones."""
+    def units(run):
+        return max(1, -(-n // (STREAM_THREADS * run)))
+
+    run = (STREAM_RUN_SHORT if cols * units(STREAM_RUN_SHORT) <= wave
+           else STREAM_RUN_LONG)
+    return run, units(run)
+
+
 class _LookBack:
     """The look-back scratch of one device and stream, kept across calls:
     a ticket counter, then a status word a block, then two values a block.
@@ -472,16 +503,25 @@ class _LookBack:
 
 
 _LOOKBACK: dict = {}
-_WAVES: dict = {}
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 def _scan_wave(device) -> int:
     """SCAN_WAVE for the card's SM count."""
-    w = _WAVES.get(device)
-    if w is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        w = _WAVES[device] = 2 * sms
-    return w
+    return 2 * _sm_count(device)
+
+
+def _stream_wave(device) -> int:
+    """STREAM_WAVE for the card's SM count."""
+    return 5 * _sm_count(device)
 
 
 def linscan_plain(spec, v, a: int = 1, reverse: bool = False,
@@ -542,8 +582,10 @@ prodscan_plain.cuda_calls = 0
 
 def _scan(spec, v, kind: str, a: int, reverse: bool, exclusive: bool,
           totals: bool):
-    """One launch of the field_linscan kernel over a CUDA tensor."""
-    name = "prodscan" if kind == "prod" else "linscan"
+    """One launch of a scan kernel over a CUDA tensor: the product scan on
+    field_linscan_stream_kernel, the others on field_linscan_kernel."""
+    prod = kind == "prod"
+    name = "prodscan" if prod else "linscan"
     if v.device.type != "cuda":
         raise ValueError(f"{name}: operand on {v.device}")
     if v.dtype != torch.int32 or v.dim() not in (2, 3) or v.shape[-1] != NLIMB:
@@ -558,7 +600,10 @@ def _scan(spec, v, kind: str, a: int, reverse: bool, exclusive: bool,
     out = torch.empty(out_shape, dtype=torch.int32, device=v.device)
     if n == 0 or cols == 0:
         return out
-    run, nb = scan_shapes(n, kind, cols, _scan_wave(v.device))
+    if prod:
+        run, nb = stream_shapes(n, cols, _stream_wave(v.device))
+    else:
+        run, nb = scan_shapes(n, kind, cols, _scan_wave(v.device))
     lin = (_lin_pows(spec, a, run, v.device)
            if kind == "a" and nb > 1 and not totals else None)
     from .._build import check, lib
@@ -571,20 +616,29 @@ def _scan(spec, v, kind: str, a: int, reverse: bool, exclusive: bool,
             state = _LOOKBACK[key] = _LookBack()
         look = state.take(nb * cols, v.device)
     try:
-        check(lib().h2_field_linscan(
-            x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(), n, cols,
-            run, nb, int(reverse), int(exclusive), int(totals),
-            SCAN_KINDS.index(kind), ctypes.addressof(_scan_pows(spec, a, run)),
-            0 if lin is None else lin.data_ptr(), *look,
-            spec.mod_words_ptr, stream), f"field_linscan ({name})")
+        if prod:
+            check(lib().h2_field_linscan_stream(
+                x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(), n,
+                cols, run, nb, int(reverse), int(exclusive), int(totals),
+                *look, spec.mod_words_ptr, stream),
+                f"field_linscan ({name})")
+        else:
+            check(lib().h2_field_linscan(
+                x.data_ptr(), x.stride(1), x.stride(0), out.data_ptr(), n,
+                cols, run, nb, int(reverse), int(exclusive), int(totals),
+                SCAN_KINDS.index(kind),
+                ctypes.addressof(_scan_pows(spec, a, run)),
+                0 if lin is None else lin.data_ptr(), *look,
+                spec.mod_words_ptr, stream), f"field_linscan ({name})")
     except RuntimeError:
         _LOOKBACK.pop(key, None)
         raise
     if nb > 1:
         state.tickets += nb * cols
-    linscan.launches += 1
+    wrapper = prodscan if prod else linscan
+    wrapper.launches += 1
     mode = "totals" if totals else "exclusive" if exclusive else "full"
-    linscan.shapes[(n, cols, mode, kind)] += 1
+    wrapper.shapes[(n, cols, mode, kind)] += 1
     return out
 
 
@@ -608,9 +662,13 @@ linscan.shapes = Counter()
 def prodscan(spec, r, reverse: bool = False, exclusive: bool = False,
              totals: bool = False):
     """The product scan of prodscan_plain (prefix products of Montgomery
-    values).  A CUDA tensor takes one launch of the field_linscan kernel,
-    counted in linscan's launches and shapes, at linscan's strides; a CPU
-    tensor takes prodscan_plain."""
+    values).  A CUDA tensor takes one launch of the stream kernel
+    (field_linscan_stream_kernel), at linscan's strides; a CPU tensor takes
+    prodscan_plain."""
     if r.device.type == "cpu":
         return prodscan_plain(spec, r, reverse, exclusive, totals)
     return _scan(spec, r, "prod", 1, reverse, exclusive, totals)
+
+
+prodscan.launches = 0
+prodscan.shapes = Counter()

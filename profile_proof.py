@@ -34,8 +34,9 @@ rows), the linear scan itself at the prefix and suffix sums, a
 div_linear and that evaluation group, fold_add_tree at the warm proof's
 tail shapes (256 x 256, 64 x 1024, 32 x 2048, 96 x 1024) and at 65,536
 lanes in groups of 2-128, the engine's grand_products over 80 vectors of
-2^15 rows and, for a tree that has it, the product scan over them, and
-for a tree that splits field programs the part programs at every
+2^15 rows and, for a tree that has it, the product scan over them and
+over one Fq column of 255 x 16, 255 x 1024 and 2^22 lanes (keygen's batch
+inversions), and for a tree that splits field programs the part programs at every
 sub-program count G.  Each is the median of ROUNDS rounds of CUDA-event means (kernels)
 or of synchronized wall times (engine calls); one JSON line.
 
@@ -129,7 +130,7 @@ def _wrappers() -> dict:
     import importlib
     out = {}
     for mod, names in (("ops.cuda_field", ("mont_mul", "mont_pow",
-                                           "add_sub", "linscan")),
+                                           "add_sub", "linscan", "prodscan")),
                        ("ops.field_prog", ("field_prog",)),
                        ("ops.ntt", ("ntt_kernel",)),
                        ("ops.cuda_ec", ("fold_mixed", "fold_add",
@@ -307,6 +308,14 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
         stack = torch.stack(dens)
         out[f"prodscan_{GP_COLUMNS}x{n}_ms"] = _median_event_ms(
             lambda: cuda_field.prodscan(jfield.FR, stack), 20)
+        del stack, nums, dens
+        # keygen's batch inversions over Fq (the window tables of k = 4, 10
+        # and 15): the exclusive prefix product of one column
+        for m in (255 * 16, 255 * 1024, 1 << 22):
+            z = chip_smoke._rand_fe(g, m, dev)
+            out[f"prodscan_fq_exclusive_L{m}_ms"] = _median_event_ms(
+                lambda: cuda_field.prodscan(jfield.FQ, z, exclusive=True),
+                200 if m < 1 << 20 else 20)
     return out
 
 

@@ -56,20 +56,21 @@ def test_mont_mul_kernel_matches_plain(dev, spec, p):
 
 @pytest.mark.parametrize("spec,p", [(FR, R), (FQ, Q)])
 def test_mont_pow_kernel_matches_plain(dev, spec, p):
-    """One launch a call at 1, 16 and 4,097 lanes (edge values 0, 1, p - 1
-    and R mod p first), exponents 0, 1, 2 and p - 2."""
+    """One launch a call at 1, 16, 80 and 4,097 lanes (edge values 0, 1,
+    p - 1 and R mod p first), exponents 0, 1, 2, 65537, 2^200, p - 2 and
+    2^256 - 1."""
     rng = np.random.default_rng(4)
     edge = [0, 1, p - 1, (1 << 256) % p]
     vals = edge + [int.from_bytes(rng.bytes(32), "big") % p
                    for _ in range(4093)]
     a = torch.from_numpy(ints_to_limbs(vals).copy()).to(dev)
-    for lanes in (1, 16, 4097):
-        for e in (0, 1, 2, p - 2):
+    for lanes in (1, 16, 80, 4097):
+        for e in (0, 1, 2, 65537, 1 << 200, p - 2, (1 << 256) - 1):
             before = cuda_field.mont_pow.launches
             got = cuda_field.mont_pow(spec, a[:lanes], e)
             assert cuda_field.mont_pow.launches == before + 1
             assert torch.equal(got, cuda_field.mont_pow_plain(
-                spec, a[:lanes], e))
+                spec, a[:lanes], e)), (lanes, e)
     inv = cuda_field.mont_pow(spec, a[1:], p - 2)
     assert torch.equal(cuda_field.mont_mul(spec, inv, a[1:]),
                        spec.const("one_mont", dev).expand(a[1:].shape))
@@ -539,8 +540,9 @@ def _scan_wants(plain, v, reverse):
                          ids=["1", "3", "1000", "4096", "32768", "80x32768",
                               "1048576"])
 def test_linscan_kernel_matches_plain(dev, shape):
-    """field_linscan's sum, linear (a random a) and product scans
-    (linscan, prodscan) over one column or a stack: forward and reverse,
+    """The scans' sum and linear (a random a) scans (linscan,
+    field_linscan_kernel) and product scan (prodscan, the stream kernel)
+    over one column or a stack: forward and reverse,
     every x, the exclusive x and the total, bitwise equal to the plain
     scans; one launch a call, no run of a plain scan on the card."""
     rng = np.random.default_rng(shape[-1] + len(shape))
@@ -563,15 +565,39 @@ def test_linscan_kernel_matches_plain(dev, shape):
         for reverse in (False, True):
             wants = _scan_wants(plain, v, reverse)
             for (exclusive, totals), want in wants.items():
-                before = cuda_field.linscan.launches
+                before = (cuda_field.linscan.launches
+                          + cuda_field.prodscan.launches)
                 plains = (cuda_field.linscan_plain.cuda_calls,
                           cuda_field.prodscan_plain.cuda_calls)
                 got = scan(v, reverse, exclusive, totals)
-                assert cuda_field.linscan.launches - before == 1
+                assert (cuda_field.linscan.launches
+                        + cuda_field.prodscan.launches - before) == 1
                 assert (cuda_field.linscan_plain.cuda_calls,
                         cuda_field.prodscan_plain.cuda_calls) == plains
                 assert torch.equal(got, want), (kind, reverse, exclusive,
                                                 totals)
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("n,cols", [(1, 80), (255, 1), (255, 80), (4097, 1),
+                                    (4097, 80), ((1 << 15) + 3, 1),
+                                    ((1 << 15) + 3, 80)],
+                         ids=["1x80", "255", "255x80", "4097", "4097x80",
+                              "32771", "32771x80"])
+def test_prodscan_kernel_odd_sizes_match_plain(dev, spec, n, cols):
+    """The product scan over Fr and over Fq (keygen's window table), at odd
+    n (the first block padded), one column and 80, forward and reverse,
+    every output, bitwise equal to prodscan_plain; one launch a call."""
+    r = _rand_canonical(np.random.default_rng(n + cols), (cols, n)).to(dev)
+    for reverse in (False, True):
+        for exclusive, totals in ((False, False), (True, False),
+                                  (False, True)):
+            before = cuda_field.prodscan.launches
+            got = cuda_field.prodscan(spec, r, reverse, exclusive, totals)
+            assert cuda_field.prodscan.launches == before + 1
+            assert torch.equal(got, cuda_field.prodscan_plain(
+                spec, r, reverse, exclusive, totals)), (reverse, exclusive,
+                                                        totals)
 
 
 def test_grand_products_on_card_match_cpu(dev):
@@ -586,14 +612,14 @@ def test_grand_products_on_card_match_cpu(dev):
     dens = _rand_canonical(rng, (11, n))
     dens[..., 0] |= 1                                         # nonzero
     cpu = TorchEngine.grand_products(None, list(nums), list(dens))
-    before = (cuda_field.linscan.launches, cuda_field.mont_mul.launches,
+    before = (cuda_field.prodscan.launches, cuda_field.mont_mul.launches,
               cuda_field.mont_pow.launches)
     plains = (jfield._prefix_prod_plain.cuda_calls,
               jfield.batch_inv_scan_plain.cuda_calls,
               cuda_field.prodscan_plain.cuda_calls)
     got = TorchEngine.grand_products(None, list(nums.to(dev)),
                                      list(dens.to(dev)))
-    assert (cuda_field.linscan.launches - before[0],
+    assert (cuda_field.prodscan.launches - before[0],
             cuda_field.mont_mul.launches - before[1],
             cuda_field.mont_pow.launches - before[2]) == (3, 4, 1)
     assert (jfield._prefix_prod_plain.cuda_calls,

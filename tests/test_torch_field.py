@@ -102,6 +102,91 @@ def test_mont_pow_matches_jfield(field, e):
     assert st.decode(got) == [pow(v, exp, p) for v in st.decode(at)]
 
 
+def _pair_schedule(spec, a, e: int, rng, ring: int):
+    """csrc/mont_mul.cu's mont_pow_kernel written out: the squaring
+    warp and the product warp as two sequences of steps, run in an order
+    that rng picks among those the named barriers allow.  Barrier 1 + s
+    (full) and 1 + ring + s (empty) of slot s; a wait passes once the other
+    warp has arrived for that phase; an arrive needs its previous phase
+    taken (else the hardware would count the next one in).  Returns the
+    product warp's result and the order of the steps."""
+    nbits, bits = e.bit_length(), [k for k in range(e.bit_length())
+                                   if e >> k & 1]
+    slots, tags = [None] * ring, [None] * ring
+    out, order = [], []
+
+    def squaring():
+        base, m = a, 0
+        for k in range(nbits):
+            if e >> k & 1:
+                slot = m % ring
+                if m >= ring:
+                    yield "wait", 1 + ring + slot
+                slots[slot], tags[slot] = base, k
+                yield "arrive", 1 + slot
+                m += 1
+            if k + 1 < nbits:
+                base = cuda_field.mont_mul_plain(spec, base, base)
+
+    def product():
+        result = spec.const("one_mont", "cpu").expand(a.shape)
+        for m in range(len(bits)):
+            slot = m % ring
+            yield "wait", 1 + slot
+            x = slots[slot]
+            assert tags[slot] == bits[m]          # the power of this bit
+            if m + ring < len(bits):
+                yield "arrive", 1 + ring + slot
+            result = x if m == 0 else cuda_field.mont_mul_plain(spec,
+                                                                result, x)
+        out.append(result)
+
+    arrived = [0] * (2 * ring + 1)
+    taken = [0] * (2 * ring + 1)
+    warps = {"squaring": squaring(), "product": product()}
+    step = {w: next(g, None) for w, g in warps.items()}
+    while any(step.values()):
+        ready = [w for w, s in step.items() if s is not None and (
+            s[0] == "arrive" or arrived[s[1]] > taken[s[1]])]
+        assert ready, f"deadlock at {step}"
+        w = ready[rng.integers(len(ready))]
+        kind, bar = step[w]
+        if kind == "arrive":
+            assert arrived[bar] == taken[bar], f"barrier {bar} arrived twice"
+            arrived[bar] += 1
+        else:
+            taken[bar] += 1
+        order.append((w, kind, bar))
+        step[w] = next(warps[w], None)
+    assert arrived == taken
+    return out[0], order
+
+
+EXPONENTS = {"0": 0, "1": 1, "2": 2, "65537": 65537, "2^200": 1 << 200}
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("e", list(EXPONENTS) + ["p-2", "2^256-1"])
+def test_mont_pow_schedules_match_jfield(field, e):
+    """The fe_pow kernel's two-warp schedule (the ring of slots, the
+    hand-overs in every order the barriers allow: three random orders,
+    rings of 7 and 2 slots), over the edge values 0, 1, p - 1, R mod p and
+    random values, against mont_pow_plain and, but for 2^256 - 1,
+    halo2tpu's mont_pow."""
+    p, sj, st = SPECS[field]
+    exp = {"p-2": p - 2, "2^256-1": (1 << 256) - 1}.get(e, EXPONENTS.get(e))
+    aj, at = _raw_pair(p, np.random.default_rng(23 + exp % 997))
+    want = cuda_field.mont_pow_plain(st, at, exp)
+    if e != "2^256-1":
+        _same(jjf.mont_pow(sj, aj, exp), want)
+    rng = np.random.default_rng(exp % 1009)
+    for ring in (cuda_field.FE_POW_RING, 2, cuda_field.FE_POW_RING):
+        got, order = _pair_schedule(st, at, exp, rng, ring)
+        assert torch.equal(got, want), ring
+        hand = sum(1 for s in order if s[:2] == ("squaring", "arrive"))
+        assert hand == bin(exp).count("1")
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_inv_matches_jfield(field):
     p, sj, st = SPECS[field]

@@ -7,10 +7,14 @@ _div_linear_jit, _eval_group_jit and _wsum_jit (XLA on CPU), at n in {1,
 columns; and the field_linscan kernel's single-pass schedule
 (csrc/field_linscan.cu at cuda_field.scan_shapes: the padded chunks, each
 thread's run, the block scan with its powers, the decoupled look-back over
-windows of blocks and the rescan, forward and reverse, for the sum, the
-linear and the product scan), written out in torch, against the plain
-scans.  Exact equality of raw Montgomery limbs: these are finite-field
-values."""
+windows of blocks and the rescan, forward and reverse, for the sum and the
+linear scan) and the stream kernel's that the product scan takes
+(cuda_field.stream_shapes: runs streamed through tiles of shared memory,
+the unit's shuffle scans, the look-back, the refold), written out in
+torch, against the plain scans and halo2tpu's prefix products.  Exact
+equality of raw Montgomery limbs: these are finite-field values."""
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,30 +188,80 @@ def test_prodscan_matches_jfield(n):
 
 # -- the kernel's schedule, written out in torch -----------------------------
 
-KINDS = {"one": ("one", 1), "random": ("a", MULTS["random"]),
-         "product": ("prod", 1)}
-
-
-def _identity(kind):
-    return _mont(1) if kind == "prod" else torch.zeros(8, dtype=torch.int32)
+KINDS = {"one": ("one", 1), "random": ("a", MULTS["random"])}
 
 
 def _fold(kind, x, v, a_m):
-    """x_(j-1) -> x_j: x + v, x a + v (a_m: a's Montgomery form) or x v."""
+    """x_(j-1) -> x_j: x + v or x a + v (a_m: a's Montgomery form)."""
     if kind == "one":
         return add_plain(FR, x, v)
-    if kind == "a":
-        return add_plain(FR, mont_mul_plain(FR, x, a_m), v)
-    return mont_mul_plain(FR, x, v)
+    return add_plain(FR, mont_mul_plain(FR, x, a_m), v)
 
 
 def _combine(kind, left, right, pw):
     """A left segment's x carried over a right one's (pw: a^(its length))."""
     if kind == "one":
         return add_plain(FR, left, right)
-    if kind == "a":
-        return add_plain(FR, mont_mul_plain(FR, left, pw), right)
-    return mont_mul_plain(FR, left, right)
+    return add_plain(FR, mont_mul_plain(FR, left, pw), right)
+
+
+def _look_back(comb, mul, look, ident, total, rng, window):
+    """csrc/field_linscan.cu's look_back (both kernels) over every block of
+    every column: rng decides which blocks before block b had published
+    their inclusive prefix by then (block 0 always), as concurrent blocks
+    would; each window's values from the last inclusive prefix on are
+    combined toward the last lane in only as many shuffle rounds as they
+    need.  look[r] = A^(2^r) for r <= log2(window), A the multiplier over a
+    block; mul carries the linear scan's multiplier from window to window
+    (None for the other scans).  Returns (x before each block, x through
+    it), (C, nb, 8) each."""
+    C, nb = total.shape[0], total.shape[1]
+    wlog = window.bit_length() - 1
+    agg, incl = total, total.clone()
+    E = ident.expand(C, nb, 8).clone()
+    for b in range(1, nb):
+        shown = torch.from_numpy(rng.random(b) < 0.4)
+        shown[0] = True
+        end, first_window, mult, e_b = b, True, None, None
+        while True:
+            js = torch.arange(end - window, end)
+            st_incl = (js < 0) | shown[js.clamp(min=0)]
+            y = torch.where(st_incl[None, :, None], incl[:, js.clamp(min=0)],
+                            agg[:, js.clamp(min=0)])
+            y = torch.where((js < 0)[None, :, None], ident, y)
+            hi = int(st_incl.nonzero().max()) if st_incl.any() else -1
+            y = torch.where((torch.arange(window) < hi)[None, :, None],
+                            ident, y)
+            live = window - hi if hi >= 0 else window
+            r = 0
+            while (1 << r) < live:          # toward the last lane
+                z = _shift_up(y, 1 << r, 1)
+                sel = ((window - 1 - torch.arange(window)) % (2 << r)) == 0
+                y = torch.where(sel[None, :, None], comb(z, y, look[r]), y)
+                r += 1
+            y = y[:, -1]
+            if first_window:
+                e_b, mult = y, look[wlog]
+            else:
+                e_b = comb(y, e_b, mult)
+                if mul is not None:
+                    mult = mul(mult, look[wlog])
+            first_window = False
+            if hi >= 0:
+                break
+            end -= window
+        E[:, b] = e_b
+        incl[:, b] = comb(e_b, total[:, b], look[0])
+    return E, incl
+
+
+def _shift_up(x, d, dim):
+    """__shfl_up_sync along `dim`: lane l reads lane l - d, lanes below d
+    their own value."""
+    m = x.shape[dim]
+    src = torch.arange(m)
+    src = torch.where(src >= d, src - d, src)
+    return x.index_select(dim, src)
 
 
 def _schedule(v, kind, a, reverse, exclusive, totals, threads, window, rng,
@@ -227,7 +281,7 @@ def _schedule(v, kind, a, reverse, exclusive, totals, threads, window, rng,
     chunk = threads * run
     pad = nb * chunk - n
     assert 0 <= pad < chunk
-    ident = _identity(kind)
+    ident = torch.zeros(8, dtype=torch.int32)
     a_m = _mont(a) if kind == "a" else None
     steps = [_mont(pow(a, run << k, R)) for k in range(threads.bit_length() - 1)]
     A = pow(a, chunk, R)
@@ -250,37 +304,10 @@ def _schedule(v, kind, a, reverse, exclusive, totals, threads, window, rng,
         T = torch.cat([T[:, :, :d], _combine(kind, T[:, :, :threads - d],
                                              T[:, :, d:], step)], 2)
     total = T[:, :, -1]                                   # (C, nb, 8)
-    agg, incl = total, total.clone()
-    E = ident.expand(C, nb, 8).clone()
-    for b in range(1, nb):
-        # which blocks before b show their inclusive prefix (block 0 does)
-        shown = torch.from_numpy(rng.random(b) < 0.4)
-        shown[0] = True
-        end, first_window, mult = b, True, None
-        while True:
-            js = torch.arange(end - window, end)
-            st_incl = (js < 0) | shown[js.clamp(min=0)]
-            x = torch.where(st_incl[None, :, None], incl[:, js.clamp(min=0)],
-                            agg[:, js.clamp(min=0)])
-            x = torch.where((js < 0)[None, :, None], ident, x)
-            h = int(st_incl.nonzero().max()) if st_incl.any() else -1
-            x = torch.where((torch.arange(window) < h)[None, :, None],
-                            ident, x)
-            for r in range(window.bit_length() - 1):      # the shuffles
-                x = _combine(kind, x[:, 0::2], x[:, 1::2], look[r])
-            x = x[:, 0]
-            if first_window:
-                e, mult = x, look[-1]
-            else:
-                e = _combine(kind, x, e, mult)
-                if kind == "a":
-                    mult = mont_mul_plain(FR, mult, look[-1])
-            first_window = False
-            if h >= 0:
-                break
-            end -= window
-        E[:, b] = e
-        incl[:, b] = _combine(kind, e, total[:, b], look[0])
+    E, incl = _look_back(
+        lambda l, r, pw: _combine(kind, l, r, pw),
+        (lambda x, y: mont_mul_plain(FR, x, y)) if kind == "a" else None,
+        look, ident, total, rng, window)
     if totals:
         return incl[:, -1]
     lin = torch.stack([_mont(pow(a, run * t, R)) for t in range(threads)])
@@ -311,8 +338,7 @@ MODES = {"full": (False, False), "exclusive": (True, False),
 def test_scan_shapes_cover_the_rows():
     """Every row in a block, the first block padded; with products, short
     runs while the grid fits one wave (a proof's div_linear), long ones
-    beyond (its evaluation groups and product scans over dozens of
-    columns)."""
+    beyond (its evaluation groups)."""
     for n in [1, 3, 1000, 1 << 15, (1 << 20) + 1, 1 << 22]:
         for kind in cuda_field.SCAN_KINDS:
             for cols in (1, 16, 80):
@@ -322,13 +348,12 @@ def test_scan_shapes_cover_the_rows():
     shapes = cuda_field.scan_shapes
     assert shapes(1 << 15, "a") == (4, 32)
     assert shapes(1 << 15, "a", 16) == (16, 8)
-    assert shapes(1 << 15, "prod", 80) == (16, 8)
     assert shapes(1 << 20, "a") == (16, 256)
     assert shapes(1 << 15, "one", 1) == (16, 8)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("mult", ["one", "random", "product"])
+@pytest.mark.parametrize("mult", ["one", "random"])
 @pytest.mark.parametrize("n,threads", [(1000, 256), (1 << 12, 256),
                                        (5000, 256), (3, 4), (1000, 4),
                                        (1, 4)],
@@ -339,24 +364,224 @@ def test_scan_schedule_matches_plain(monkeypatch, n, threads, mult, mode):
     the look-back, the rescan) at its 256 threads a block (one to five
     blocks a column) and at 4 (up to 63 blocks, looking back 32 and 4
     blocks a window, with random blocks already inclusive), short and long
-    runs, two columns, forward and reverse, for the sum, a random
-    multiplier and the product, equals the plain scan."""
+    runs, two columns, forward and reverse, for the sum and a random
+    multiplier, equals the plain scan."""
     monkeypatch.setattr(cuda_field, "SCAN_THREADS", threads)
     kind, a = KINDS[mult]
     exclusive, totals = MODES[mode]
-    vals = _vals(500 + n, 2 * n)
-    if kind == "prod":
-        vals = [1 + x % (R - 1) for x in vals]
-    v, _ = _pair(vals, (2, n))
+    v, _ = _pair(_vals(500 + n, 2 * n), (2, n))
     rng = np.random.default_rng(n * threads)
     for reverse in (False, True):
-        if kind == "prod":
-            want = cuda_field.prodscan_plain(FR, v, reverse, exclusive,
-                                             totals)
-        else:
-            want = linscan_plain(FR, v, a, reverse, exclusive, totals)
+        want = linscan_plain(FR, v, a, reverse, exclusive, totals)
         # a wave of 264 blocks and of 1 (long runs at the small sizes)
         for window, wave in ((32, 264), (4, 264), (4, 1)):
             got = _schedule(v, kind, a, reverse, exclusive, totals, threads,
                             window, rng, wave)
             assert torch.equal(got, want), (reverse, window, wave)
+
+
+# -- the product scan's kernel (field_linscan_stream_kernel) ----------------
+
+STREAM_WARP = 32       # lanes a warp: the unit's shuffle scans
+
+
+def _tile_map(k, warp):
+    """A warp's tile k: 16-byte word u (lane u % 32 copies it) is half u & 1
+    of element k of thread u // 2's run; it lands at word u + u // 2 of the
+    tile (one pad word a thread).  Returns (thread, 16-byte half, slot)."""
+    u = torch.arange(warp * 2)
+    tl = u // 2
+    return tl, u & 1, u + tl
+
+
+def _stream_schedule(spec, v, reverse, exclusive, totals, rng, wave,
+                     window=32):
+    """field_linscan_stream_kernel's one launch over v (C, n, 8), written
+    out at cuda_field's STREAM_THREADS threads a unit and STREAM_WARP lanes
+    a warp, looking back `window` units a window: a grid of nb units a
+    column in ticket order; logical position q = j + pad with pad = nb *
+    chunk - n ones first; j is row j (forward) or row n - 1 - j (reverse).
+    Each warp streams its runs through tiles (the word map of _tile_map;
+    every element is read from its tile slot) and folds each run; the unit
+    scans the run totals by shuffles in each warp and then the warp totals,
+    publishes its aggregate and looks back: rng decides which units before
+    it had published their inclusive prefix by then (unit 0 always), as
+    concurrent units would.  Then each warp streams its runs again, folds
+    each from the prefix before it, writes the outputs in place in the tile
+    and stores the tile through the same map.  `wave`: the units a wave of
+    the card holds, which sets the run.  Returns the totals (C, 8) or the
+    output (C, n, 8)."""
+    threads, warp = cuda_field.STREAM_THREADS, STREAM_WARP
+    warps = threads // warp
+    lane_log, warp_log = warp.bit_length() - 1, warps.bit_length() - 1
+    C, n = v.shape[0], v.shape[1]
+    run, nb = cuda_field.stream_shapes(n, C, wave)
+    assert 2 <= run <= cuda_field.STREAM_MAX_RUN
+    chunk, slot_words = threads * run, 3
+    pad = nb * chunk - n
+    assert 0 <= pad < chunk
+    one = spec.encode([1], "cpu")[0]
+    words = v.reshape(C, 2 * n, 4)
+    # j of each warp's first element
+    q0 = (torch.arange(nb)[:, None] * chunk - pad
+          + warp * run * torch.arange(warps)[None])              # (nb, W)
+
+    def mul(left, right):
+        return mont_mul_plain(spec, left, right)
+
+    def tile(k):
+        """Tile k of every warp, (C, nb, W, warp * slot_words, 4), and the
+        map: j of each word, (nb, W, words), its global word, slot."""
+        tl, h, slot = _tile_map(k, warp)
+        j = q0[:, :, None] + tl * run + k                        # (nb, W, u)
+        row = torch.where(j < 0, 0, n - 1 - j if reverse else j)
+        g = 2 * row + h
+        got = words[:, g]                                        # (C, ., 4)
+        got = torch.where((j < 0)[None, ..., None],
+                          one.reshape(2, 4)[h].expand_as(got), got)
+        sh = torch.zeros(C, nb, warps, warp * slot_words, 4, dtype=torch.int32)
+        sh[:, :, :, slot] = got
+        return sh, j, g, slot
+
+    at = torch.arange(warp) * slot_words
+
+    def elems(sh):                                       # (C, nb, T, 8)
+        e = torch.cat([sh[:, :, :, at], sh[:, :, :, at + 1]], -1)
+        return e.reshape(C, nb, threads, 8)
+
+    # pass 1: each run folded
+    x = elems(tile(0)[0])
+    for k in range(1, run):
+        x = mul(x, elems(tile(k)[0]))
+    # the shuffle scan in each warp, then of the warp totals
+    x = x.reshape(C, nb, warps, warp, 8)
+    lane = torch.arange(warp)
+    for k in range(lane_log):
+        y = _shift_up(x, 1 << k, 3)
+        x = torch.where((lane >= 1 << k)[:, None], mul(y, x), x)
+    xe = _shift_up(x, 1, 3)
+    wt = x[:, :, :, -1]                                         # (C, nb, W, 8)
+    for k in range(warp_log):
+        y = _shift_up(wt, 1 << k, 2)
+        wt = torch.where((torch.arange(warps) >= 1 << k)[:, None], mul(y, wt),
+                         wt)
+    total = wt[:, :, -1]                                        # (C, nb, 8)
+    wex = _shift_up(wt, 1, 2)
+    E, incl = _look_back(lambda left, right, pw: mul(left, right), None,
+                         [None] * window.bit_length(), one, total, rng,
+                         window)
+    if totals:
+        return incl[:, -1]
+    # x before each warp, then before each run
+    W = torch.where((torch.arange(nb) == 0)[None, :, None, None], wex,
+                    mul(E[:, :, None].expand(C, nb, warps, 8), wex))
+    W[:, :, 0] = E
+    Wl = W[:, :, :, None].expand(C, nb, warps, warp, 8)
+    X = mul(Wl, xe)
+    first_block = (torch.arange(nb)[:, None] == 0) & (torch.arange(warps) == 0)
+    X = torch.where(first_block[None, :, :, None, None], xe, X)
+    X[:, :, :, 0] = Wl[:, :, :, 0]
+    X = X.reshape(C, nb, threads, 8)
+    # pass 2: fold again from it, outputs in place in the tile, the tile
+    # stored through its map (pads skipped)
+    out = torch.empty(C, 2 * n, 4, dtype=torch.int32)
+    for k in range(run):
+        sh, j, g, slot = tile(k)
+        nx = mul(X, elems(sh))
+        o = (X if exclusive else nx).reshape(C, nb, warps, warp, 8)
+        sh[:, :, :, at] = o[..., :4]
+        sh[:, :, :, at + 1] = o[..., 4:]
+        X = nx
+        keep = j >= 0
+        out[:, g[keep]] = sh[:, :, :, slot][:, keep]
+    return out.reshape(C, n, 8)
+
+
+def test_stream_shapes_cover_the_rows():
+    """Every row in a unit, the first unit padded; short runs while the
+    grid fits one wave (a single column of 2^15), runs of 32 beyond (the
+    grand products' 80 columns: 8 units a column, 640 in one wave; keygen's
+    batch inversions over 2^22 lanes)."""
+    for n in [1, 3, 1000, 1 << 15, (1 << 20) + 1, 1 << 22]:
+        for cols in (1, 16, 80):
+            run, nb = cuda_field.stream_shapes(n, cols)
+            chunk = cuda_field.STREAM_THREADS * run
+            assert (nb - 1) * chunk < n <= nb * chunk
+            assert 2 <= run <= cuda_field.STREAM_MAX_RUN
+    shapes = cuda_field.stream_shapes
+    assert shapes(1 << 15, 80) == (32, 8)
+    assert shapes(1 << 15, 1) == (4, 64)
+    assert shapes(1 << 22, 1) == (32, 1024)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n,threads,warp", [
+    (1000, 128, 32), (1 << 12, 128, 32), (5000, 128, 32), (3, 8, 4),
+    (1000, 8, 4), (1, 8, 4)],
+    ids=["1000", "4096", "5000", "3-t8", "1000-t8", "1-t8"])
+def test_stream_schedule_matches_plain(monkeypatch, n, threads, warp, mode):
+    """The stream kernel's single-pass schedule (one launch: the runs
+    streamed through tiles and folded, the shuffle scans, the look-back,
+    the refold) at its 128 threads a unit in warps of 32 (one to ten units
+    a column) and at 8 threads in warps of 4 (up to 250 units, looking back
+    32 and 4 units a window, with random units already inclusive), short
+    and long runs, two columns, forward and reverse, equals the plain
+    product scan."""
+    monkeypatch.setattr(cuda_field, "STREAM_THREADS", threads)
+    monkeypatch.setattr(sys.modules[__name__], "STREAM_WARP", warp)
+    exclusive, totals = MODES[mode]
+    v, _ = _pair([1 + x % (R - 1) for x in _vals(500 + n, 2 * n)], (2, n))
+    rng = np.random.default_rng(n * threads)
+    for reverse in (False, True):
+        want = cuda_field.prodscan_plain(FR, v, reverse, exclusive, totals)
+        # a wave of 660 units and of 1 (long runs at the small sizes)
+        for window, wave in ((32, 660), (4, 660), (4, 1)):
+            got = _stream_schedule(FR, v, reverse, exclusive, totals, rng,
+                                   wave, window)
+            assert torch.equal(got, want), (reverse, window, wave)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("n,cols", [(1, 1), (1, 80), (255, 1), (255, 80),
+                                    (4097, 1), ((1 << 15) + 3, 1)],
+                         ids=["1", "1x80", "255", "255x80", "4097",
+                              "32771"])
+def test_prodscan_schedule_matches_jfield(field, n, cols):
+    """The product scan's schedule (the stream kernel) at its 128 threads
+    in warps of 32, over Fr (the grand products) and Fq (keygen's window
+    table), forward and reverse, every x, the exclusive x and the totals,
+    at short runs and (one column, a wave of one unit) long ones, against
+    prodscan_plain and, for the first column, against halo2tpu's
+    _prefix_prod (forward; the reverse through flips) and, built from the
+    exclusive scans as the kernel route builds it, batch_inv_scan."""
+    from halo2tpu_torch.fields import jfield as tjf
+    spec, jspec = (FR, jjf.FR) if field == "fr" else (tjf.FQ, jjf.FQ)
+    rng_v = np.random.default_rng(700 + n + cols)
+    vals = [1 + int.from_bytes(rng_v.bytes(32), "big") % (spec.p - 1)
+            for _ in range(n * cols)]
+    v = spec.encode(vals, "cpu").reshape(cols, n, 8)
+    j0 = jnp.asarray(convert.to_jax_limbs(v[0]))
+    fwd = np.asarray(jjf._prefix_prod(jspec, j0))
+    rev = np.asarray(jnp.flip(jjf._prefix_prod(jspec, jnp.flip(j0, 0)), 0))
+    rng = np.random.default_rng(n)
+    waves = (660, 1) if cols == 1 and n < 1 << 15 else (660,)
+    got = {}
+    for reverse in (False, True):
+        for mode, (exclusive, totals) in MODES.items():
+            want = cuda_field.prodscan_plain(spec, v, reverse, exclusive,
+                                             totals)
+            for wave in waves:
+                out = _stream_schedule(spec, v, reverse, exclusive, totals,
+                                       rng, wave)
+                assert torch.equal(out, want), (reverse, mode, wave)
+            got[reverse, mode] = out
+    _same(got[False, "full"][0], fwd)
+    _same(got[True, "full"][0], rev)
+    _same(got[False, "totals"][0], fwd[-1])
+    _same(got[True, "totals"][0], fwd[-1])
+    total_inv = tjf.mont_pow(spec, mont_mul_plain(
+        spec, got[False, "exclusive"][0, -1], v[0, -1]), spec.p - 2)
+    inv = mont_mul_plain(spec, mont_mul_plain(
+        spec, got[False, "exclusive"][0], got[True, "exclusive"][0]),
+        total_inv)
+    _same(inv, jjf.batch_inv_scan(jspec, j0))

@@ -79,7 +79,10 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              field-program interpreter on the card), peak memory; one more
              warm proof under torch.profiler (every CUDA kernel the card
              ran and the device busy share, profile_proof.profile_run);
-             the warm proof's sha256, held to RSA_PROOF_SHA256.
+             the warm proof's sha256, held to RSA_PROOF_SHA256; the
+             field programs the warm proof ran (its part, compressions and
+             weighted sums) at its row counts, bitwise against the
+             interpreter.
   5. msm     the bit-serial msm() over the 2^15 Lagrange bases of phase 4's
              SRS, 8 scalar vectors, equal to the windowed commits of the
              same vectors (phase 4's MSMContext) and, at n = 256, to the
@@ -97,11 +100,33 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              products' launches and fe_pow as in phase 4, no run of a
              plain loop on the card), the part program's size, the part
              cache's bytes, peak memory and the sha256, held to
-             COMPOSITE_PROOF_SHA256.
-The launch counts of phases 4, 5 and 6 are each zeroed just before the
-phase and read just after; every kernel of a path must have launched in
-it.  The port imports nothing of JAX or of halo2tpu; the script raises if
-either was loaded.  The line before the last is the kernels JSON; the last
+             COMPOSITE_PROOF_SHA256; its field programs checked as in
+             phase 4.
+  7. sharded  the multi-device prover (plonk/sharded.py, parallel/*) on
+             D shards of cuda:0: the flat four-step at 2^15 x 1 and 2^18
+             (the composite's extended domain), forward and inverse, D =
+             1, 2, 4, 8, bitwise equal to one ntt call and timed beside
+             it; the sharded MSM at phase 5's inputs (D = 4) against
+             msm(); the prove core at n1 = 128, n2 = 256, D = 4 against
+             the single-device NTT, gate and MSM; the golden circuits at
+             D = 2 and 4 byte-equal to the golden file; RSA-SHA256 k=15
+             on ShardedTorchEngine with D = 4 shards of cuda:0 (phase 4's
+             pk and SRS): a cold and a warm proof, one more under
+             torch.profiler, launches by kernel beside TorchEngine's,
+             verification and the sha256, held to RSA_PROOF_SHA256; no
+             plain loop on the card; then every kernel of that warm proof
+             at each shape it launched it with (the shard's row counts,
+             the four-step's 128- and 256-point lines, the fold lanes
+             and tail trees of the commits), on new random inputs,
+             bitwise against its plain version; with more than one card the
+             four-step and Timestamp k=6 again with one shard a card; the
+             scaling report (parallel/scaling_report.py) as one line.
+             Shards of one card measure the sharding's mechanics, not a
+             speed-up.
+The launch counts of phases 4, 5, 6 and 7 (its RSA proofs) are each
+zeroed just before the path and read just after; every kernel of a path
+must have launched in it.  The port imports nothing of JAX or of
+halo2tpu; the script raises if either was loaded.  The line before the last is the kernels JSON; the last
 line is {"ok": true, "device": {...}}.  Without CUDA the script exits
 non-zero.
 """
@@ -451,9 +476,9 @@ class _Latency:
                 "products_per_s": self.rate_per_s}
 
 
-def _rows_case(g, B: int, C: int, card: "Card", dev):
+def _rows_case(g, B: int, C: int, card: "Card", dev, n: int = 1 << 15):
     """(acc, points, scalars, bound, extra) for a fold_mixed_tiled_rows
-    check at msm()'s shape: n = 2^15 bases (base n - 1 the identity), B
+    check over n bases (msm()'s 2^15 by default; base n - 1 the identity), B
     random scalar vectors (bits 252-253 clear), 254 * B * C lanes.  512
     lanes each whose acc equals, negates or lacks (identity) the base of
     their first live row (bit set, base not the identity).  The bound
@@ -465,7 +490,6 @@ def _rows_case(g, B: int, C: int, card: "Card", dev):
     import torch
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.ops.msm import SCALAR_BITS
-    n = 1 << 15
     rows = n // C
     points = _rand_points(g, n, dev)
     points[:, 2] = jfield.FQ.const("one_mont", dev)
@@ -564,6 +588,7 @@ def _op_engine(device):
         _wsum = TorchEngine._wsum
         weighted_sum = TorchEngine.weighted_sum
         scale = TorchEngine.scale
+        add = TorchEngine.add
 
         def __init__(self):
             self.device = device
@@ -1895,6 +1920,13 @@ def phase_slice(report: dict, cache_dir: str):
                   "field_linscan", "prodscan", "fold_mixed", "fold_add",
                   "fold_add_any", "fold_add_tree", "fold_horner",
                   "fold_dbl_any"))
+    # the warm proof's field programs (its part program, compressions and
+    # weighted sums) at the rows it ran them over, against the interpreter
+    checked = _path_shape_checks(
+        "slice", {"field_prog": warm_shapes["field_prog"]},
+        _path_programs(eng, pk), None, "cuda")
+    log(f"slice: the warm proof's field programs bitwise equal to the "
+        f"interpreter at each of their {checked['field_prog']} shapes")
     report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
                          quotient_s=tr.phases["quotient"])
     report["prodscan"].update(
@@ -1929,15 +1961,15 @@ def _median_s(fn, runs: int = 3):
     return statistics.median(times), out
 
 
-def phase_msm(report: dict, srs, eng) -> None:
-    import numpy as np
-    import torch
-    from halo2tpu_torch.curves import g1 as G1
-    from halo2tpu_torch.curves.jpoint import affine_to_device
-    from halo2tpu_torch.fields.bn254 import R
-    from halo2tpu_torch.ops.msm import msm
+MSM_N, MSM_B = 1 << 15, 8
 
-    n, B = 1 << 15, 8
+
+def msm_vectors() -> list:
+    """Phase 5's MSM_B scalar vectors of MSM_N: random ones, bytes, zeros
+    and the edge values R - 1 and 1."""
+    import numpy as np
+    from halo2tpu_torch.fields.bn254 import R
+    n, B = MSM_N, MSM_B
     rng = np.random.default_rng(15)
 
     def full(m):
@@ -1947,8 +1979,18 @@ def phase_msm(report: dict, srs, eng) -> None:
     for i in range(0, n, 997):
         edge[i] = R - 1
         edge[i + 1] = 1
-    vectors = ([full(n) for _ in range(B - 3)]
-               + [[int(v) for v in rng.integers(0, 256, n)], [0] * n, edge])
+    return ([full(n) for _ in range(B - 3)]
+            + [[int(v) for v in rng.integers(0, 256, n)], [0] * n, edge])
+
+
+def phase_msm(report: dict, srs, eng) -> None:
+    import torch
+    from halo2tpu_torch.curves import g1 as G1
+    from halo2tpu_torch.curves.jpoint import affine_to_device
+    from halo2tpu_torch.ops.msm import msm
+
+    n, B = MSM_N, MSM_B
+    vectors = msm_vectors()
     pts = affine_to_device(srs.g_lagrange[:n], "cuda")
     ctx = eng._msm_lagrange                   # phase 4's windowed context
     if ctx.n != n:
@@ -2160,6 +2202,13 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
                  ("mont_mul", "fe_pow", "field_prog", "ntt", "field_addsub",
                   "field_linscan", "prodscan", "fold_mixed", "fold_add_tree",
                   "fold_horner"))
+    # the warm proof's field programs (its part program, the pair lookups'
+    # compressions, the weighted sums), as phase 4 checks RSA's
+    checked = _path_shape_checks(
+        "composite", {"field_prog": warm_shapes["field_prog"]},
+        _path_programs(eng, pk), None, "cuda")
+    log(f"composite: the warm proof's field programs bitwise equal to the "
+        f"interpreter at each of their {checked['field_prog']} shapes")
     for name, n in per_warm.items():
         report[name]["composite_launches_per_warm_proof"] = n
     report["prodscan"].update(
@@ -2179,6 +2228,403 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
         composite_profiled_warm_proof=prof, composite_proof_sha256=sha)
     log("composite: proofs verify, nullifier_seed ^ 1 is rejected; same "
         "seed, same bytes")
+
+
+# -- phase 7: the multi-device prover on shards of the card ------------------
+
+SHARDED_DS = (1, 2, 4, 8)        # shards of one card in the four-step checks
+SHARDED_PROOF_D = 4              # shards of the RSA proofs
+# kernels the sharded RSA proofs must launch (the commitments take the
+# bit-serial fold: no windowed fold_mixed, no fold_dbl_any)
+SHARDED_KERNELS = ("mont_mul", "fe_pow", "field_prog", "ntt",
+                   "field_addsub", "field_linscan", "prodscan",
+                   "fold_mixed_tiled_rows", "fold_add_tree", "fold_horner")
+
+
+def _card_mesh(d: int, devices=None):
+    """d shards of cuda:0, or one shard a device of `devices`."""
+    import torch
+    from halo2tpu_torch.parallel.mesh import Mesh
+    return Mesh(devices or [torch.device("cuda", 0)] * d)
+
+
+def _wall_ms(fn, devs, runs: int = 5) -> float:
+    """Median wall ms of fn() over `runs` calls after one, each ended by a
+    synchronize of every device of the mesh."""
+    import torch
+
+    def once():
+        t0 = time.perf_counter()
+        fn()
+        for d in dict.fromkeys(devs):
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    return statistics.median(once() for _ in range(runs))
+
+
+def _sharded_four_step(meshes: dict) -> list:
+    """_FlatFourStep at 2^15 x 1 and 2^18 (the composite's extended
+    domain), forward and inverse, on each mesh, bitwise against one ntt
+    kernel call; wall ms of each beside that call's."""
+    import torch
+    from halo2tpu_torch.fields.bn254 import R, fr_root_of_unity, inv_mod
+    from halo2tpu_torch.ops import ntt as tntt
+    from halo2tpu_torch.plonk.sharded import _FlatFourStep
+    g = torch.Generator().manual_seed(70)
+    rows = []
+    for k in (15, 18):
+        n, omega = 1 << k, fr_root_of_unity(k)
+        x = _rand_fe(g, n, "cuda")
+        plan = tntt.get_plan(n, omega, "cuda")
+        for inverse in (False, True):
+            single = ((lambda: tntt.intt(plan, x)) if inverse
+                      else (lambda: tntt.ntt(plan, x)))
+            want = single()
+            row = {"n": n, "inverse": inverse,
+                   "ntt_ms": _wall_ms(single, [x.device])}
+            for label, mesh in meshes.items():
+                fs = (_FlatFourStep(mesh, "shard", n, inv_mod(omega, R),
+                                    scale=inv_mod(n, R)) if inverse
+                      else _FlatFourStep(mesh, "shard", n, omega))
+                blocks = mesh.split(x)
+                got = torch.cat([b.to(x.device) for b in fs(blocks)])
+                if _max_abs_err(got, want):
+                    raise AssertionError(f"sharded: four-step {label} at n "
+                                         f"= {n} differs from ntt")
+                ms = _wall_ms(lambda: fs(blocks), mesh.flat)
+                row[label] = {"ms": ms, "over_ntt": ms / row["ntt_ms"]}
+            rows.append(row)
+            way = "inverse" if inverse else "forward"
+            log(f"sharded: four-step n = {n} {way} bitwise equal to ntt; "
+                f"wall ms {json.dumps(row)}")
+    return rows
+
+
+def _path_programs(eng, pk) -> list:
+    """The field programs a proof on eng runs: the programs its
+    run_program ran as it ran them (a sharded engine's with their
+    rotations in the leaves), its compressions, the quotient's part
+    program and the weighted sums."""
+    from halo2tpu_torch.plonk.engine import _SUM_PROGRAMS
+    state = pk._torch_state_cache[eng.state_key]
+    return ([flat for _, flat, _ in getattr(eng, "_unrotated", {}).values()]
+            + list(eng._compress.values()) + [state.quotient_program]
+            + list(_SUM_PROGRAMS.values()))
+
+
+def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
+                       dev) -> dict:
+    """Each kernel of a path at every shape the path launched it with (hist:
+    kernel -> Counter of SHAPE_KEYS tuples), on new random inputs of that
+    shape, bitwise against its plain version: both directions of a scan,
+    the NTT with and without its fused scale, a product and a squaring,
+    each field program of `programs` the path ran.  Returns the shapes
+    checked by kernel; raises on a difference or on a shape no case here
+    can build."""
+    import torch
+    from halo2tpu_torch.fields import jfield
+    from halo2tpu_torch.fields.bn254 import R, fr_root_of_unity
+    from halo2tpu_torch.ops import cuda_ec, cuda_field
+    from halo2tpu_torch.ops import ntt as tntt
+    from halo2tpu_torch.ops.field_prog import field_prog, field_prog_plain
+    from halo2tpu_torch.ops.msm import SCALAR_BITS
+    FR = jfield.FR
+    g = torch.Generator().manual_seed(72)
+
+    def rand_a() -> int:
+        return int(torch.randint(1, 2**62, (1,), generator=g)) ** 4 % R
+
+    def pairs(name, key):
+        """(label, kernel call, plain call) at one shape of kernel name."""
+        if name == "mont_mul":
+            a, b = (_rand_fe(g, key[0], dev) for _ in range(2))
+            return [("product", lambda: cuda_field.mont_mul(FR, a, b),
+                     lambda: cuda_field.mont_mul_plain(FR, a, b)),
+                    ("square", lambda: cuda_field.mont_mul(FR, a, a),
+                     lambda: cuda_field.mont_mul_plain(FR, a, a))]
+        if name == "fe_pow":
+            a = _rand_fe(g, key[0], dev)
+            return [(f"e {e}", lambda e=e: cuda_field.mont_pow(FR, a, e),
+                     lambda e=e: cuda_field.mont_pow_plain(FR, a, e))
+                    for e in (R - 2, rand_a())]
+        if name == "field_addsub":
+            op = cuda_field._OP_NAMES.index(key[1])
+            a, b = (_rand_fe(g, key[0], dev) for _ in range(2))
+            plain = cuda_field._PLAIN[op]
+            args = ([(a,)] if op == cuda_field.NEG
+                    else [(a, b), (a, b[:1])])
+            return [(f"operands {[tuple(x.shape) for x in xs]}",
+                     lambda xs=xs: cuda_field.add_sub(FR, op, *xs),
+                     lambda xs=xs: plain(FR, *xs)) for xs in args]
+        if name == "ntt":
+            n, C = key[0], key[1]
+            x = _rand_fe(g, n * C, dev).reshape(n, C, 8)
+            plan = tntt.get_plan(n, fr_root_of_unity(n.bit_length() - 1),
+                                 dev)
+            sc = _rand_fe(g, 1, dev)[0]
+            return [("forward", lambda: tntt.ntt_kernel(plan, x),
+                     lambda: tntt.ntt_plain(plan, x)),
+                    ("scaled", lambda: tntt.ntt_kernel(plan, x, scale=sc),
+                     lambda: cuda_field.mont_mul_plain(
+                         FR, tntt.ntt_plain(plan, x), sc))]
+        if name in ("field_linscan", "prodscan"):
+            n, cols, mode, kind = key
+            v = _rand_fe(g, cols * n, dev).reshape(cols, n, 8)
+            ex, tot = mode == "exclusive", mode == "totals"
+            if kind == "prod":
+                return [(f"reverse {r}",
+                         lambda r=r: cuda_field.prodscan(FR, v, r, ex, tot),
+                         lambda r=r: cuda_field.prodscan_plain(FR, v, r, ex,
+                                                               tot))
+                        for r in (False, True)]
+            a = 1 if kind == "one" else rand_a()
+            return [(f"reverse {r}",
+                     lambda r=r: cuda_field.linscan(FR, v, a, r, ex, tot),
+                     lambda r=r: cuda_field.linscan_plain(FR, v, a, r, ex,
+                                                          tot))
+                    for r in (False, True)]
+        if name == "fold_mixed_tiled_rows":
+            L, C, rows = key
+            acc, pts, sc, _, _ = _rows_case(g, L // (SCALAR_BITS * C), C,
+                                            card, dev, n=C * rows)
+            return [("rows", lambda: cuda_ec.fold_mixed_tiled_rows(
+                        acc, pts, sc, C, 0, rows),
+                     lambda: cuda_ec.fold_mixed_tiled_rows_plain(
+                        acc, pts, sc, C, 0, rows))]
+        if name == "fold_add_tree":
+            G, W = key
+            acc = (_tree_case(g, G, W, dev)[0] if W > 8
+                   else _rand_points(g, G * W, dev))
+            return [("tree", lambda: cuda_ec.fold_add_tree(acc, G, W),
+                     lambda: cuda_ec.fold_add_tree_plain(acc, G, W))]
+        if name == "fold_horner":
+            B, P, times = key
+            parts = _horner_case(g, B, P, times, dev)[0]
+            return [("horner", lambda: cuda_ec.fold_horner(parts, times),
+                     lambda: cuda_ec.fold_horner_plain(parts, times))]
+        if name == "field_prog":
+            prog_name, n, size, groups = key
+            prog = next((p for p in programs if (p.name, p.code.shape[0],
+                                                 p.groups)
+                         == (prog_name, size, groups)), None)
+            if prog is None:
+                raise AssertionError(f"{path}: no program of the path has "
+                                     f"the field_prog shape {key}")
+            leaves = [_rand_fe(g, n, dev) for _ in prog.leaf_keys]
+            consts = _rand_fe(g, max(len(prog.const_keys), 1), dev)
+            return [("program", lambda: field_prog(FR, prog, leaves, consts,
+                                                   n),
+                     lambda: field_prog_plain(FR, prog, leaves, consts, n))]
+        raise AssertionError(f"{path}: no shape check for kernel {name}")
+
+    # these launches and plain runs are comparisons: no path's counts
+    wrappers, loops = _wrappers(), _plain_loops()
+    saved = ({n: (w.launches, w.shapes.copy()) for n, w in wrappers.items()},
+             {n: f.cuda_calls for n, f in loops.items()})
+    checked = {}
+    try:
+        for name, counter in hist.items():
+            for key in sorted(counter):
+                for label, fn, plain in pairs(name, key):
+                    got, want = fn(), plain()
+                    err = (_max_abs_err(got, want) if got.numel()
+                           else int(got.shape != want.shape))
+                    if err:
+                        raise AssertionError(
+                            f"{path}: {name} at {SHAPE_KEYS[name]} {key} "
+                            f"({label}): kernel != plain ({err})")
+            if counter:
+                checked[name] = len(counter)
+    finally:
+        for n, w in wrappers.items():
+            w.launches = saved[0][n][0]
+            w.shapes.clear()
+            w.shapes.update(saved[0][n][1])
+        for n, f in loops.items():
+            f.cuda_calls = saved[1][n]
+    return checked
+
+
+def phase_sharded(report: dict, srs, cache_dir: str) -> None:
+    """The multi-device prover (plonk/sharded.py, parallel/*) on D shards of
+    cuda:0 (and, on a machine with several cards, one shard a card)."""
+    import numpy as np
+    import torch
+    from halo2tpu_torch.curves.jpoint import affine_to_device
+    from halo2tpu_torch.fields.bn254 import R, fr_root_of_unity
+    from halo2tpu_torch.fields.jfield import FR, ints_to_limbs
+    from halo2tpu_torch.ops import ntt as tntt
+    from halo2tpu_torch.ops.msm import (_bit_partials, _partials_to_affine,
+                                        msm)
+    from halo2tpu_torch.parallel.msm import sharded_bit_partials
+    from halo2tpu_torch.parallel.pipeline import make_sharded_prove_core
+    from halo2tpu_torch.parallel.scaling_report import run_report
+    from halo2tpu_torch.plonk.keygen import keygen, keygen_cached
+    from halo2tpu_torch.plonk.prover import create_proof
+    from halo2tpu_torch.plonk.sharded import ShardedTorchEngine
+    from halo2tpu_torch.plonk.srs import setup
+    from halo2tpu_torch.plonk.verifier import verify_proof
+    from halo2tpu_torch.utils.trace import Tracer
+
+    torch.cuda.empty_cache()
+    out = report["ntt"].setdefault("sharded", {})
+    meshes = {f"D{d}": _card_mesh(d) for d in SHARDED_DS}
+    out["four_step"] = _sharded_four_step(meshes)
+
+    # the sharded MSM at phase 5's inputs against msm()
+    n, B, D = MSM_N, MSM_B, SHARDED_PROOF_D
+    vectors = msm_vectors()
+    pts = affine_to_device(srs.g_lagrange[:n], "cuda")
+    limbs = torch.from_numpy(np.stack([ints_to_limbs(
+        [v % R for v in s_]) for s_ in vectors])).to("cuda")
+    mesh = meshes[f"D{D}"]
+    want = msm(pts, vectors)
+
+    def sharded_msm():
+        return _partials_to_affine(sharded_bit_partials(mesh, pts, limbs))
+
+    if sharded_msm() != want:
+        raise AssertionError("sharded: the sharded MSM differs from msm()")
+    # msm() encodes its python-int scalars on the host; the sharded MSM
+    # and msm()'s device part take the same limbs
+    msm_ms = {"msm": _wall_ms(lambda: msm(pts, vectors), mesh.flat, 3),
+              "msm_from_limbs": _wall_ms(lambda: _partials_to_affine(
+                  _bit_partials(pts, limbs)), mesh.flat, 3),
+              f"sharded_D{D}": _wall_ms(sharded_msm, mesh.flat, 3)}
+    log(f"sharded: sharded_bit_partials n = {n}, B = {B}, D = {D}: the "
+        f"points of msm(); wall ms {json.dumps(msm_ms)}")
+    report["fold_mixed_tiled_rows"]["sharded_msm_ms"] = msm_ms
+
+    # the prove core at n1 = 128, n2 = 256, D = 4 against one device
+    n1, n2 = 128, 256
+    omega = fr_root_of_unity(15)
+    g = torch.Generator().manual_seed(71)
+    x = _rand_fe(g, n1 * n2, "cuda")
+    fn, shardings, tw = make_sharded_prove_core(mesh, n1, n2, omega)
+    args = [s_.put(a) for a, s_ in zip((tw, x.reshape(n1, n2, 8), pts,
+                                        limbs[:1]), shardings)]
+    gate, partials = fn(*args)
+    ev = tntt.ntt(tntt.get_plan(n1 * n2, omega, "cuda"), x)
+    want_gate = FR.decode(ev)
+    got = gate.gather().transpose(0, 1).reshape(-1, 8)
+    if FR.decode(got) != [v * v % R for v in want_gate]:
+        raise AssertionError("sharded: the prove core's gate differs")
+    if _partials_to_affine(partials) != want[:1]:
+        raise AssertionError("sharded: the prove core's MSM differs")
+    log("sharded: prove core n1 = 128, n2 = 256, D = 4: the single-device "
+        "NTT, gate and MSM")
+
+    # the golden circuits at D = 2 and 4 (each mesh a new engine)
+    with open(os.path.join(ROOT, "tests/golden/torch_port_proofs.json")) as f:
+        golden = json.load(f)
+    for name, (c, k, inst, seed) in golden_circuits().items():
+        gsrs = setup(k)
+        pk, vk = keygen(c, k, gsrs, device="cuda")
+        for d in (2, 4):
+            t0 = time.perf_counter()
+            eng = ShardedTorchEngine(vk.domain, gsrs, meshes[f"D{d}"])
+            proof = create_proof(pk, gsrs, c, inst, rng_seed=seed,
+                                 engine=eng)
+            if proof.hex() != golden[name]["proof"]:
+                raise AssertionError(f"sharded: golden {name} at D = {d}: "
+                                     "proof bytes differ")
+            if not verify_proof(vk, gsrs, inst, proof):
+                raise AssertionError(f"sharded: golden {name} at D = {d} "
+                                     "does not verify")
+            log(f"sharded: golden {name} at D = {d}: byte-identical, "
+                f"verifies ({time.perf_counter() - t0:.2f} s)")
+
+    # RSA-SHA256 at k=15 on D shards of cuda:0: phase 4's pk (from its
+    # cache file) and SRS
+    c = rsa_circuit()
+    pk, vk = keygen_cached(c, 15, srs, cache_key="rsa_sha256_chip_smoke",
+                           device="cuda", cache_dir=cache_dir)
+    eng = ShardedTorchEngine(vk.domain, srs, mesh)
+    _check_no_plain_loops("sharded checks")
+    _zero_counts()
+    t0 = time.perf_counter()
+    cold_proof = create_proof(pk, srs, c, c.instances(), rng_seed=3,
+                              engine=eng)
+    cold = time.perf_counter() - t0
+    tr = Tracer("rsa_sharded_proof")
+    before, shapes_before = _counts(), _shapes()
+    t0 = time.perf_counter()
+    proof = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng,
+                         tracer=tr)
+    warm = time.perf_counter() - t0
+    launches = _counts()
+    per_warm = {k_: v - before[k_] for k_, v in launches.items()}
+    warm_shapes = {k_: h - shapes_before[k_] for k_, h in _shapes().items()}
+    _check_no_plain_loops("sharded")
+    from profile_proof import profile_run
+    profiled, prof = profile_run(
+        lambda: create_proof(pk, srs, c, c.instances(), rng_seed=4,
+                             engine=eng), cache_dir)
+    sha = hashlib.sha256(proof).hexdigest()
+    phases = {p: round(v, 3) for p, v in tr.phases.items()}
+    single = {k_: report[k_].get("launches_per_warm_proof", 0)
+              for k_ in per_warm}
+    log(f"sharded: RSA k=15 on {D} shards of cuda:0: cold proof {cold:.2f} "
+        f"s, warm proof {warm:.2f} s (TorchEngine, phase 4: "
+        f"{report['field_prog']['warm_proof_s']:.2f} s)")
+    log(f"sharded: warm phases {json.dumps(phases)}")
+    log(f"sharded: launches per warm proof {json.dumps(per_warm)}; "
+        f"TorchEngine's (phase 4) {json.dumps(single)}")
+    for name, hist in warm_shapes.items():
+        if hist:
+            log(f"sharded: warm proof shapes {name} ({SHAPE_KEYS[name]}: "
+                f"launches) {json.dumps(_shape_table(hist))}")
+    log(f"sharded: profiled warm proof {json.dumps(prof)}; TorchEngine's "
+        f"(phase 4) CUDA kernels "
+        f"{report['field_prog']['profiled_warm_proof']['cuda_kernels']}")
+    log(f"sharded: warm proof sha256 {sha}")
+    if sha != RSA_PROOF_SHA256 or profiled != proof:
+        raise AssertionError(f"sharded: RSA proof sha256 {sha}, expected "
+                             f"{RSA_PROOF_SHA256}")
+    if not verify_proof(vk, srs, c.instances(), proof):
+        raise AssertionError("sharded: RSA warm proof does not verify")
+    if not verify_proof(vk, srs, c.instances(), cold_proof):
+        raise AssertionError("sharded: RSA cold proof does not verify")
+    _record_path(report, f"rsa_k15_sharded_d{D}_2_proofs", launches,
+                 SHARDED_KERNELS)
+    # every kernel of the warm proof at each shape it launched it with
+    checked = _path_shape_checks("sharded", warm_shapes,
+                                 _path_programs(eng, pk), Card(), "cuda")
+    log("sharded: every kernel of the warm proof bitwise equal to its "
+        f"plain version at each of its shapes {json.dumps(checked)}")
+    out["shapes_checked"] = checked
+    for name, n_ in per_warm.items():
+        report[name]["sharded_launches_per_warm_proof"] = n_
+    out.update(rsa_d=D, rsa_cold_proof_s=cold, rsa_warm_proof_s=warm,
+               rsa_phases=phases, rsa_profiled_warm_proof=prof,
+               rsa_proof_sha256=sha, msm_ms=msm_ms)
+    del eng, pk
+
+    # one shard a card, where there are several
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        m = 1 << (cards.bit_length() - 1)
+        devs = [torch.device("cuda", i) for i in range(m)]
+        out["cards"] = _sharded_four_step({f"cards{m}": _card_mesh(m, devs)})
+        c, k, inst, seed = golden_circuits()["timestamp_k6"]
+        gsrs = setup(k)
+        pk, vk = keygen(c, k, gsrs, device="cuda")
+        eng = ShardedTorchEngine(vk.domain, gsrs, _card_mesh(m, devs))
+        proof = create_proof(pk, gsrs, c, inst, rng_seed=seed, engine=eng)
+        if proof.hex() != golden["timestamp_k6"]["proof"]:
+            raise AssertionError(f"sharded: Timestamp on {m} cards differs")
+        log(f"sharded: Timestamp k=6 on {m} cards, one shard a card: "
+            "byte-identical")
+    else:
+        log("sharded: one card: no run with one shard a card")
+
+    rep = run_report()
+    log(json.dumps(rep))
+    out["scaling_report"] = rep
+    log("sharded: four-step, MSM, prove core, golden and RSA proofs on "
+        "shards of the card equal the single-device results")
 
 
 def _loaded_reference() -> list:
@@ -2270,6 +2716,7 @@ def main() -> int:
         phase_msm(report, srs, eng)
         del eng
         phase_composite(report, srs, cache_dir)
+        phase_sharded(report, srs, cache_dir)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     loaded = _loaded_reference()

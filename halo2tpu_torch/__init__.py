@@ -19,6 +19,11 @@ on the CUDA device unless the caller passes device="cpu".
                    fold_dbl_any kernels + plain versions
   ops/ntt, ops/msm radix-2 NTT, windowed fixed-base MSM, bit-serial msm()
   plonk/           TorchEngine, quotient, keygen, create_proof, verifier
+  plonk/sharded    ShardedTorchEngine: the prover over a mesh of devices
+  parallel/        Mesh (mesh), the sharded four-step NTT (ntt), the
+                   lane-sharded MSM (msm), 2-D meshes (dcn), the prove
+                   core (pipeline), the 1 -> N scaling line
+                   (scaling_report)
   convert          halo2tpu (JAX) arrays <-> port tensors
 """
 

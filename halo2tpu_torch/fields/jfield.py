@@ -99,6 +99,7 @@ class FieldSpec:
         self.p = p
         self.r = (1 << 256) % p          # Montgomery R
         self.r2 = self.r * self.r % p
+        self.ninv256 = (-pow(p, -1, 1 << 256)) % (1 << 256)
         self._np = {
             "p64": int_to_limbs(p).view(np.uint32).astype(np.int64),
             "p16": np.array([(p >> (16 * i)) & 0xFFFF for i in range(16)],

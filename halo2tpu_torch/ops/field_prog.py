@@ -117,6 +117,23 @@ def sum_program(m: int, groups: int = 1) -> Program:
                    list(range(m)), name="sum")
 
 
+def unrotated(prog: Program) -> tuple:
+    """prog with its rotations moved into the leaves: each LOAD of leaf l
+    at rot != 0 reads a new leaf at rot 0, one new leaf a distinct (l,
+    rot), appended after prog's.  Returns (the program, [(l, rot), ...] in
+    the new leaves' order); the caller passes leaf l rotated by rot there,
+    and each row then reads only its own row of every leaf."""
+    code = prog.code.copy()
+    extra: dict = {}
+    for i in np.nonzero((code[:, 0] == LOAD) & (code[:, 3] != 0))[0]:
+        key = (int(code[i, 2]), int(code[i, 3]))
+        code[i, 2] = extra.setdefault(key, len(prog.leaf_keys) + len(extra))
+        code[i, 3] = 0
+    keys = list(prog.leaf_keys) + [("rot", l, r) for l, r in extra]
+    return (Program(code, prog.starts, prog.comb, prog.scale, prog.slots,
+                    keys, prog.const_keys, name=prog.name), list(extra))
+
+
 def _run_sub(spec, code, slots: int, leaves, consts, n: int):
     """One sub-program in plain torch; returns its OUT value."""
     regs: list = [None] * slots

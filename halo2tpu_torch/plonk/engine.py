@@ -26,6 +26,7 @@ from ..fields.jfield import FR, NLIMB, device_of
 from ..ops import ntt as tntt
 from ..ops.field_prog import field_prog, groups_for, sum_program
 from ..ops.msm import NUM_WINDOWS, MSMContext, points_tag
+from .quotient import _horner, compile_program, const_value, expr_ir
 
 
 def _powers(a_enc, n: int):
@@ -90,6 +91,14 @@ class TorchEngine:
         self._msm_lagrange = _shared_msm_ctx(srs, domain.n, self.device)
         self._scalar_cache = {}
         self._part_scale_cache = {}
+        self._compress = {}
+        # the prover keeps its proving-key state per engine of this key
+        self.state_key = (self.name, self.device)
+
+    def synchronize(self) -> None:
+        """Wait for the engine's device (a CUDA device) to finish."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- representation ----------------------------------------------------
     def _encode(self, vals):
@@ -151,6 +160,16 @@ class TorchEngine:
 
     def const_vec(self, c, n):
         return self._enc_scalar(c).expand(n, NLIMB)
+
+    @staticmethod
+    def nbytes(vec) -> int:
+        return vec.nelement() * vec.element_size()
+
+    @staticmethod
+    def compact(vecs) -> list:
+        """The vectors copied into one allocation of their own (a view of
+        a stacked transform output keeps the whole stack alive)."""
+        return list(torch.stack(vecs).unbind(0))
 
     # -- elementwise -------------------------------------------------------
     def add(self, a, b):
@@ -315,6 +334,31 @@ class TorchEngine:
             raise ValueError("lookup failure: input value not in table")
 
     # -- evaluation --------------------------------------------------------
+    def compress_exprs(self, exprs, col_vals, theta):
+        """The theta-compression sum_i theta^(k-1-i) e_i of expressions over
+        the n-domain columns col_vals (the prover's lookup compression):
+        one field program, compiled once per expression list, run by
+        run_program; a lone column query at rotation 0 is its column."""
+        values = tuple(expr_ir(e) for e in exprs)
+        if len(values) == 1 and values[0][0] == "load" and not values[0][2]:
+            kind, i = values[0][1]
+            return col_vals[kind][i]
+        prog = self._compress.get(values)
+        if prog is None:
+            v = values[0] if len(values) == 1 else _horner(list(values),
+                                                           ("theta",))
+            prog = self._compress[values] = compile_program(
+                [v], self.d.n, name="compress")
+        consts = self._encode([const_value(k, {"theta": theta}, 0)
+                               for k in prog.const_keys])
+        return self.run_program(prog, [col_vals[k][i]
+                                       for k, i in prog.leaf_keys], consts)
+
+    def run_program(self, prog, leaves, consts):
+        """One field program over the domain's n rows (ops/field_prog.py):
+        leaves, engine vectors; consts, (K, 8) Montgomery."""
+        return field_prog(FR, prog, leaves, consts, self.d.n)
+
     def _wsum(self, vecs, coefs):
         """sum_i coefs[i] * vecs[i] over (n, 8) vectors, coefs (m, 8)
         Montgomery: one field-program launch (ops/field_prog.py::
@@ -364,7 +408,7 @@ class TorchEngine:
         for i in range(0, len(vecs), 64):
             cenc = self._encode([c % R for c in coefs[i:i + 64]])
             part = self._wsum(vecs[i:i + 64], cenc)
-            acc = part if acc is None else jfield.add(FR, acc, part)
+            acc = part if acc is None else self.add(acc, part)
         return acc
 
     # -- grand products ----------------------------------------------------

@@ -12,8 +12,8 @@ and JaxEngine proofs for the same witness and seed.
   evals (advice, fixed, random, sigmas, perm z, lookups)
   SHPLONK multiopen ............................. zeta, nu, W, mu, W'
 
-Tracer phases end with a CUDA synchronize on a CUDA engine, so their times
-are device times, not enqueue times.
+Tracer phases end with the engine's synchronize (a CUDA synchronize on a
+CUDA engine), so their times are device times, not enqueue times.
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ import os
 from contextlib import contextmanager
 
 import numpy as np
-import torch
 
 from ..fields.bn254 import R, FR_DELTA, inv_mod
 from ..utils.trace import NULL
@@ -32,7 +31,7 @@ from .keygen import ProvingKey
 from .shplonk import Query, shplonk_open
 from .transcript import ProofWriter
 from .engine import TorchEngine
-from .quotient import compress_exprs, fold_quotient
+from .quotient import fold_quotient
 
 
 def _rng_field(rng: np.random.Generator) -> int:
@@ -95,10 +94,10 @@ class _PkState:
             if not parts:
                 cache[q] = []
                 return []
-            est = sum(p.nelement() * p.element_size() for p in parts)
+            est = sum(eng.nbytes(p) for p in parts)
             if est > self._parts_budget:
                 return parts            # over budget: recompute next proof
-            cache[q] = list(torch.stack(parts).unbind(0))
+            cache[q] = eng.compact(parts)
             self._parts_budget -= est
             self.parts_cached_bytes += est
         return cache[q]
@@ -114,7 +113,7 @@ def _get_state(pk: ProvingKey, eng) -> _PkState:
     cache = getattr(pk, "_torch_state_cache", None)
     if cache is None:
         cache = pk._torch_state_cache = {}
-    key = (eng.name, eng.device)
+    key = eng.state_key
     if key not in cache:
         cache[key] = _PkState(pk, eng)
     return cache[key]
@@ -124,8 +123,7 @@ def _get_state(pk: ProvingKey, eng) -> _PkState:
 def _phase(tr, name: str, eng):
     with tr.phase(name):
         yield
-        if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)
+        eng.synchronize()
 
 
 def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
@@ -198,10 +196,10 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
     with _phase(tr, "lookups_permute", eng):
         ci_devs, ct_devs = [], []
         for lk in cs.lookups:
-            ci_devs.append(compress_exprs(eng, [p[0] for p in lk.pairs],
-                                          lag_vals, theta))
-            ct_devs.append(compress_exprs(eng, [p[1] for p in lk.pairs],
-                                          lag_vals, theta))
+            ci_devs.append(eng.compress_exprs([p[0] for p in lk.pairs],
+                                              lag_vals, theta))
+            ct_devs.append(eng.compress_exprs([p[1] for p in lk.pairs],
+                                              lag_vals, theta))
             lookup_state.append({})
         a_vecs, s_vecs, lookup_fails = eng.permute_lookup_batch(
             ci_devs, ct_devs, u, [lk.max_bits for lk in cs.lookups])

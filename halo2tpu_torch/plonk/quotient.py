@@ -13,8 +13,10 @@ cached on the prover's _PkState) and runs as one field_prog launch a part
 (ops/field_prog.py).  A proof re-encodes only the program's constants.
 Field ops on canonical values are exact, so the Horner y-fold gives the
 bits of halo2tpu's weighted reduction.  The prover's n-domain lookup
-compression (`compress_exprs`) still evaluates expressions one field op a
-launch, through torch callables cached by structure.
+compression (TorchEngine.compress_exprs) compiles its expressions the same
+way, one program a compression.  `_val_fn_for` evaluates an expression one
+field op a launch (torch callables cached by structure): the per-op route
+that chip_smoke.py holds the field_prog kernel against.
 
 Fold order (gates, then permutation rules, then per-lookup rules) is pinned
 by the verifier's y-Horner and must match halo2tpu/plonk/verifier.py.
@@ -30,7 +32,7 @@ from .expression import (AdviceQuery, Constant, FixedQuery, InstanceQuery,
 from ..fields import jfield
 from ..fields.jfield import FR
 from ..ops.field_prog import (ADD, CONST, HORNER, LOAD, MUL, NEG, OUT, S_MAX,
-                              SQR, SUB, Program, field_prog, groups_for)
+                              SQR, SUB, Program, groups_for)
 
 
 # ---------------------------------------------------------------------------
@@ -109,21 +111,6 @@ def _val_fn_for(expr):
         fn = _make_val_fn(expr)
         _FOLD_FNS[key] = fn
     return fn, leaves
-
-
-def compress_exprs(eng, exprs, col_vals, theta):
-    """theta-compression sum_i theta^(k-1-i) e_i over any column family,
-    one field op a launch (the prover's n-domain lookup compression)."""
-    vals = []
-    for e in exprs:
-        fn, leaves = _val_fn_for(e)
-        vals.append(fn(*[eng._enc_scalar(v) if kind == "const"
-                         else col_vals[kind][v] for kind, v in leaves]))
-    if len(vals) == 1:
-        return vals[0]
-    k = len(vals)
-    return eng.weighted_sum(vals, [pow(theta, k - 1 - i, R)
-                                   for i in range(k)])
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +465,6 @@ def _fold_part(eng, st, srcs, ch, q, prog):
 
     consts = eng._encode([const_value(k, ch, st.zh_inv[q])
                           for k in prog.const_keys])
-    return field_prog(FR, prog, [leaf(k) for k in prog.leaf_keys], consts,
-                      eng.d.n)
+    return eng.run_program(prog, [leaf(k) for k in prog.leaf_keys], consts)
 
 

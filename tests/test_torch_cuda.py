@@ -656,3 +656,161 @@ def test_linscan_kernel_stacks_match_plain(dev):
         cuda_field.linscan(FR, polys[0], x, reverse=True, exclusive=True),
         cuda_field.linscan_plain(FR, polys[0], x, reverse=True,
                                  exclusive=True))
+
+
+# -- the multi-device prover on shards of the card ---------------------------
+
+def _card_mesh(d):
+    from halo2tpu_torch.parallel.mesh import Mesh
+    return Mesh([torch.device("cuda", 0)] * d)
+
+
+@pytest.mark.parametrize("k", [10, 15])
+def test_four_step_on_card_shards_matches_ntt(dev, k):
+    """plonk/sharded.py::_FlatFourStep on D = 1, 2, 4, 8 shards of the
+    card, forward and inverse, one column and a stack of three: the ntt
+    kernel's bits."""
+    from halo2tpu_torch.fields.bn254 import inv_mod
+    from halo2tpu_torch.plonk.sharded import _FlatFourStep
+    n, omega = 1 << k, fr_root_of_unity(k)
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(ints_to_limbs([int.from_bytes(rng.bytes(32), "big")
+                                        % R for _ in range(3 * n)]).copy())
+    x = FR.to_mont(x.reshape(n, 3, 8).to(dev))
+    plan = tntt.get_plan(n, omega, dev)
+    for inverse in (False, True):
+        want = tntt.intt(plan, x) if inverse else tntt.ntt(plan, x)
+        for d in (1, 2, 4, 8):
+            mesh = _card_mesh(d)
+            fs = (_FlatFourStep(mesh, "shard", n, inv_mod(omega, R),
+                                scale=inv_mod(n, R)) if inverse
+                  else _FlatFourStep(mesh, "shard", n, omega))
+            assert torch.equal(torch.cat(fs(mesh.split(x))), want), d
+            assert torch.equal(torch.cat(fs(mesh.split(
+                x[:, 1].contiguous()))), want[:, 1]), d
+
+
+def test_sharded_engine_on_card_matches_cpu(dev):
+    """ShardedTorchEngine on 4 shards of the card against TorchEngine on the
+    CPU: the cross-block scans (grand products, div_linear, evaluations),
+    the weighted sum, a rotated field program and commitments in a padded
+    group of the bit-serial sharded fold."""
+    from halo2tpu_torch.plonk.domain import make_domain
+    from halo2tpu_torch.plonk.engine import TorchEngine
+    from halo2tpu_torch.plonk.sharded import ShardedTorchEngine
+    from halo2tpu_torch.plonk.srs import setup
+    k = 8
+    n = 1 << k
+    d, srs = make_domain(k, 3), setup(k, cache=False)
+    ref = TorchEngine(d, srs, "cpu")
+    sh = ShardedTorchEngine(d, srs, _card_mesh(4), msm_batch=2)
+    rng = np.random.default_rng(8)
+    cols = [[int.from_bytes(rng.bytes(32), "big") % R or 1
+             for _ in range(n)] for _ in range(6)]
+    rv, sv = ref.from_ints_stack(cols), sh.from_ints_stack(cols)
+
+    def same(a, b):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert torch.equal(y.gather().cpu(), x)
+
+    same(ref.grand_products(rv[:3], rv[3:]), sh.grand_products(sv[:3],
+                                                               sv[3:]))
+    for a in (3, R - 2, 0):
+        same([ref.div_linear(rv[0], a)], [sh.div_linear(sv[0], a)])
+    pairs = [(i, x) for i in range(6) for x in (5, R - 1)]
+    assert sh.eval_polys([(sv[i], x) for i, x in pairs]) == ref.eval_polys(
+        [(rv[i], x) for i, x in pairs])
+    same([ref.weighted_sum(rv, cols[0][:6])], [sh.weighted_sum(sv,
+                                                               cols[0][:6])])
+    prog = quotient.compile_program(
+        [quotient._mul(quotient._ld("a", 0, rot=-1),
+                       quotient._ld("b", 0, rot=n - 70)),
+         quotient._ld("a", 0, rot=65)], n, fold=("y",))
+    leaves = {("a", 0): 0, ("b", 0): 1}
+    consts = ref._encode(cols[1][:len(prog.const_keys)])
+    same([ref.run_program(prog, [rv[leaves[k_]] for k_ in prog.leaf_keys],
+                          consts)],
+         [sh.run_program(prog, [sv[leaves[k_]] for k_ in prog.leaf_keys],
+                         consts.to(dev))])
+    assert sh.commit_lagrange_batch(sv[:3]) == ref.commit_lagrange_batch(
+        rv[:3])
+    assert sh.commit_batch(sv[3:4]) == ref.commit_batch(rv[3:4])
+
+
+def test_sharded_timestamp_on_card_is_the_golden(dev):
+    """Timestamp k=6 proven by ShardedTorchEngine on 4 shards of the card:
+    halo2tpu's HostEngine bytes (tests/golden/torch_port_proofs.json)."""
+    import json
+    import os
+    from chip_smoke import golden_circuits
+    from halo2tpu_torch.plonk.keygen import keygen
+    from halo2tpu_torch.plonk.prover import create_proof
+    from halo2tpu_torch.plonk.sharded import ShardedTorchEngine
+    from halo2tpu_torch.plonk.srs import setup
+    from halo2tpu_torch.plonk.verifier import verify_proof
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "torch_port_proofs.json")) as f:
+        golden = json.load(f)["timestamp_k6"]["proof"]
+    c, k, inst, seed = golden_circuits()["timestamp_k6"]
+    srs = setup(k, cache=False)
+    pk, vk = keygen(c, k, srs, device="cuda")
+    eng = ShardedTorchEngine(vk.domain, srs, _card_mesh(4))
+    proof = create_proof(pk, srs, c, inst, rng_seed=seed, engine=eng)
+    assert proof.hex() == golden
+    assert verify_proof(vk, srs, inst, proof)
+
+
+def test_sharded_prover_one_shard_a_card(dev):
+    """On a machine with several cards, one shard a card (make_mesh over
+    the first power of two of them): the four-step against the ntt kernel,
+    the sharded MSM against msm(), Timestamp k=6 against the golden."""
+    import json
+    import os
+    from chip_smoke import golden_circuits
+    from halo2tpu_torch.fields.bn254 import inv_mod
+    from halo2tpu_torch.ops.msm import _partials_to_affine
+    from halo2tpu_torch.parallel.mesh import make_mesh
+    from halo2tpu_torch.parallel.msm import sharded_bit_partials
+    from halo2tpu_torch.plonk.keygen import keygen
+    from halo2tpu_torch.plonk.prover import create_proof
+    from halo2tpu_torch.plonk.sharded import ShardedTorchEngine, _FlatFourStep
+    from halo2tpu_torch.plonk.srs import setup
+    from halo2tpu_torch.plonk.verifier import verify_proof
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(1 << (cards.bit_length() - 1))
+    k = 12
+    n, omega = 1 << k, fr_root_of_unity(k)
+    rng = np.random.default_rng(12)
+    x = FR.to_mont(torch.from_numpy(ints_to_limbs(
+        [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
+    ).copy()).to(dev))
+    plan = tntt.get_plan(n, omega, dev)
+    fs = _FlatFourStep(mesh, "shard", n, omega)
+    got = fs(mesh.split(x))
+    assert [b.device for b in got] == mesh.flat
+    assert torch.equal(torch.cat([b.to(dev) for b in got]),
+                       tntt.ntt(plan, x))
+    fi = _FlatFourStep(mesh, "shard", n, inv_mod(omega, R),
+                       scale=inv_mod(n, R))
+    assert torch.equal(torch.cat([b.to(dev) for b in fi(mesh.split(x))]),
+                       tntt.intt(plan, x))
+    pts = affine_to_device(_points(256, 3), dev)
+    svs = [[int.from_bytes(rng.bytes(32), "big") % R for _ in range(256)]
+           for _ in range(2)]
+    limbs = torch.from_numpy(np.stack([ints_to_limbs(s) for s in svs])).to(
+        dev)
+    assert _partials_to_affine(sharded_bit_partials(mesh, pts, limbs)) == (
+        msm(pts, svs))
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "torch_port_proofs.json")) as f:
+        golden = json.load(f)["timestamp_k6"]["proof"]
+    c, k, inst, seed = golden_circuits()["timestamp_k6"]
+    srs = setup(k, cache=False)
+    pk, vk = keygen(c, k, srs, device="cuda")
+    eng = ShardedTorchEngine(vk.domain, srs, mesh)
+    proof = create_proof(pk, srs, c, inst, rng_seed=seed, engine=eng)
+    assert proof.hex() == golden
+    assert verify_proof(vk, srs, inst, proof)

@@ -66,6 +66,30 @@ def test_mont_mul_raw_edge_operands():
             x * y * rinv % p for x in edge for y in edge]
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 256, 3000])
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_plain_python_int_route_matches_torch_route(field, lanes,
+                                                    monkeypatch):
+    """mont_mul_plain's python-int route on CPU operands gives the bits of
+    its float64 torch route (the one CUDA tensors take), on any 256-bit
+    operands (canonical or not) and broadcast shapes."""
+    p, _, st = SPECS[field]
+    g = torch.Generator().manual_seed(lanes)
+    a = torch.randint(-2**31, 2**31, (lanes, 8), generator=g,
+                      dtype=torch.int64).to(torch.int32)
+    b = torch.randint(-2**31, 2**31, (lanes, 8), generator=g,
+                      dtype=torch.int64).to(torch.int32)
+    c = torch.from_numpy(tjf.ints_to_limbs([p - 1, 0, 1, p]).copy())
+    pairs = [(a, b), (a, b[:1]), (a[:4, None], c[None]), (c, c.flip(0)),
+             (a, a)]
+    got = [cuda_field.mont_mul_plain(st, x, y) for x, y in pairs]
+    monkeypatch.setattr(cuda_field, "_cpu_ints", lambda *ts: False)
+    want = [cuda_field.mont_mul_plain(st, x, y) for x, y in pairs]
+    for w, gt in zip(want, got):
+        assert gt.dtype == torch.int32 and gt.shape == w.shape
+        assert torch.equal(gt, w)
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_add_sub_neg_match_jfield(field):
     p, sj, st = SPECS[field]

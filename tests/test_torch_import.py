@@ -23,6 +23,10 @@ from halo2tpu_torch.plonk.srs import setup
 from halo2tpu_torch.plonk.verifier import verify_proof
 from halo2tpu_torch.plonk.keygen import keygen
 from halo2tpu_torch.plonk.prover import create_proof
+import halo2tpu_torch.plonk.sharded
+import halo2tpu_torch.parallel.mesh, halo2tpu_torch.parallel.ntt
+import halo2tpu_torch.parallel.msm, halo2tpu_torch.parallel.dcn
+import halo2tpu_torch.parallel.pipeline, halo2tpu_torch.parallel.scaling_report
 c = SquareCircuit(5)
 srs = setup(3, cache=False)
 pk, vk = keygen(c, 3, srs, device="cpu")
@@ -53,7 +57,11 @@ def test_import_needs_no_cuda_nvcc_or_triton():
             "halo2tpu_torch.gadgets.qr_extractor, "
             "halo2tpu_torch.circuits.nullifier, "
             "halo2tpu_torch.circuits.conditional_secrets, "
-            "halo2tpu_torch.circuits.aadhaar_qr\n"
+            "halo2tpu_torch.circuits.aadhaar_qr, "
+            "halo2tpu_torch.plonk.sharded, halo2tpu_torch.parallel.mesh, "
+            "halo2tpu_torch.parallel.ntt, halo2tpu_torch.parallel.msm, "
+            "halo2tpu_torch.parallel.dcn, halo2tpu_torch.parallel.pipeline, "
+            "halo2tpu_torch.parallel.scaling_report\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
             "assert _build._lib is None\n")
@@ -81,7 +89,10 @@ def test_port_and_chip_smoke_import_nothing_of_halo2tpu():
     assert len(paths) > 30
     for rel in ("ops/poseidon.py", "gadgets/poseidon.py",
                 "gadgets/qr_extractor.py", "circuits/nullifier.py",
-                "circuits/conditional_secrets.py", "circuits/aadhaar_qr.py"):
+                "circuits/conditional_secrets.py", "circuits/aadhaar_qr.py",
+                "plonk/sharded.py", "parallel/mesh.py", "parallel/ntt.py",
+                "parallel/msm.py", "parallel/dcn.py", "parallel/pipeline.py",
+                "parallel/scaling_report.py"):
         assert os.path.join(ROOT, "halo2tpu_torch", rel) in paths, rel
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imports_of(p)
@@ -115,6 +126,9 @@ def test_entry_points_default_to_the_card():
     from halo2tpu_torch.fields.jfield import FR
     from halo2tpu_torch.ops.msm import MSMContext
     from halo2tpu_torch.ops.ntt import get_plan
+    from halo2tpu_torch.parallel.dcn import make_mesh2d
+    from halo2tpu_torch.parallel.mesh import make_mesh
+    from halo2tpu_torch.parallel.scaling_report import run_report
     from halo2tpu_torch.plonk.domain import make_domain
     from halo2tpu_torch.plonk.engine import TorchEngine
     from halo2tpu_torch.plonk.keygen import keygen
@@ -129,6 +143,9 @@ def test_entry_points_default_to_the_card():
         "MSMContext": lambda: MSMContext([G1_GEN] * 4),
         "affine_to_device": lambda: affine_to_device([G1_GEN]),
         "get_plan": lambda: get_plan(8, make_domain(3, 3).omega),
+        "make_mesh": lambda: make_mesh(1),
+        "make_mesh2d": lambda: make_mesh2d(1, 1),
+        "run_report": lambda: run_report((1,), 4, 64),
         "FieldSpec.encode": lambda: FR.encode([1]),
     }
     for name, call in calls.items():

@@ -123,7 +123,17 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              scaling report (parallel/scaling_report.py) as one line.
              Shards of one card measure the sharding's mechanics, not a
              speed-up.
-The launch counts of phases 4, 5, 6 and 7 (its RSA proofs) are each
+  8. mock    the mock prover (plonk/mock.py) on the card at k=15:
+             RSA-SHA256 and the composite satisfied (MockProver.run, each
+             part's wall time: synthesis, the column encoding, gates,
+             copies, lookups), RSA with MOCK_TAMPER written after
+             synthesis equal to tests/golden/mock_k15_failures.json
+             (halo2tpu's list), the composite with nullifier_seed ^ 1
+             failing; field_prog launches and shapes, no plain loop on
+             the card, and mont_mul at every lane count it ran (a
+             product and a squaring) and every field program it ran at
+             2^15 rows, each bitwise against its plain version.
+The launch counts of phases 4, 5, 6, 7 (its RSA proofs) and 8 are each
 zeroed just before the path and read just after; every kernel of a path
 must have launched in it.  The port imports nothing of JAX or of
 halo2tpu; the script raises if either was loaded.  The line before the last is the kernels JSON; the last
@@ -206,6 +216,12 @@ RSA_PROOF_SHA256 = ("2567c205a68a04a28dbd9df0fc0d98e9"
 RSA_MESSAGE = bytes(range(256)) * 4
 COMPOSITE_PROOF_SHA256 = ("d7ee4f98ff4892a518e5757eda473410"
                           "864e3126f606cb9a17a2c3f51361afa1")
+# phase 8's tamper of rsa_circuit()'s witness, (advice column, row, value)
+# written after synthesis: a gate cell that is also copied (a gate and
+# two copy failures) and row 0 of range_48's lookup column, far outside
+# its table (a lookup and a copy failure).  halo2tpu's MockProver gives
+# tests/golden/mock_k15_failures.json for it
+MOCK_TAMPER = ((0, 100, 7), (48, 0, 1 << 200))
 
 
 def log(msg: str) -> None:
@@ -2320,15 +2336,17 @@ def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
     kernel -> Counter of SHAPE_KEYS tuples), on new random inputs of that
     shape, bitwise against its plain version: both directions of a scan,
     the NTT with and without its fused scale, a product and a squaring,
-    each field program of `programs` the path ran.  Returns the shapes
-    checked by kernel; raises on a difference or on a shape no case here
-    can build."""
+    every field program of `programs` with a field_prog shape the path
+    ran whose rotations its rows can hold, at those rows.  Returns the
+    shapes checked by kernel; raises on a difference or on a shape no
+    case here can build."""
     import torch
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.fields.bn254 import R, fr_root_of_unity
     from halo2tpu_torch.ops import cuda_ec, cuda_field
     from halo2tpu_torch.ops import ntt as tntt
-    from halo2tpu_torch.ops.field_prog import field_prog, field_prog_plain
+    from halo2tpu_torch.ops.field_prog import (LOAD, field_prog,
+                                               field_prog_plain)
     from halo2tpu_torch.ops.msm import SCALAR_BITS
     FR = jfield.FR
     g = torch.Generator().manual_seed(72)
@@ -2336,14 +2354,22 @@ def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
     def rand_a() -> int:
         return int(torch.randint(1, 2**62, (1,), generator=g)) ** 4 % R
 
+    def plain_mont_mul(a, b, chunk: int = 1 << 22):
+        """mont_mul_plain by chunks of lanes: its (lanes, 16, 16) float64
+        products take 2 KiB a lane (the mock's column encodings run 8.3 M
+        lanes and more)."""
+        return torch.cat([cuda_field.mont_mul_plain(FR, a[i:i + chunk],
+                                                    b[i:i + chunk])
+                          for i in range(0, a.shape[0], chunk)])
+
     def pairs(name, key):
         """(label, kernel call, plain call) at one shape of kernel name."""
         if name == "mont_mul":
             a, b = (_rand_fe(g, key[0], dev) for _ in range(2))
             return [("product", lambda: cuda_field.mont_mul(FR, a, b),
-                     lambda: cuda_field.mont_mul_plain(FR, a, b)),
+                     lambda: plain_mont_mul(a, b)),
                     ("square", lambda: cuda_field.mont_mul(FR, a, a),
-                     lambda: cuda_field.mont_mul_plain(FR, a, a))]
+                     lambda: plain_mont_mul(a, a))]
         if name == "fe_pow":
             a = _rand_fe(g, key[0], dev)
             return [(f"e {e}", lambda e=e: cuda_field.mont_pow(FR, a, e),
@@ -2406,18 +2432,26 @@ def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
                      lambda: cuda_ec.fold_horner_plain(parts, times))]
         if name == "field_prog":
             prog_name, n, size, groups = key
-            prog = next((p for p in programs if (p.name, p.code.shape[0],
-                                                 p.groups)
-                         == (prog_name, size, groups)), None)
-            if prog is None:
+            # a program compiled for more rows may hold a rotation the
+            # kernel cannot take at n (it wants each rot in [0, n))
+            progs = {id(p): p for p in programs
+                     if (p.name, p.code.shape[0], p.groups)
+                     == (prog_name, size, groups)
+                     and (p.code[p.code[:, 0] == LOAD, 3] < n).all()}
+            if not progs:
                 raise AssertionError(f"{path}: no program of the path has "
                                      f"the field_prog shape {key}")
-            leaves = [_rand_fe(g, n, dev) for _ in prog.leaf_keys]
-            consts = _rand_fe(g, max(len(prog.const_keys), 1), dev)
-            return [("program", lambda: field_prog(FR, prog, leaves, consts,
-                                                   n),
-                     lambda: field_prog_plain(FR, prog, leaves, consts, n))]
+            return program_pairs(list(progs.values()), n)
         raise AssertionError(f"{path}: no shape check for kernel {name}")
+
+    def program_pairs(progs, n):
+        """Each program at n rows, its inputs made as its turn comes."""
+        for i, prog in enumerate(progs):
+            leaves = [_rand_fe(g, n, dev) for _ in prog.leaf_keys]
+            consts = _rand_fe(g, len(prog.const_keys), dev)
+            yield (f"program {i} of {len(progs)}",
+                   lambda: field_prog(FR, prog, leaves, consts, n),
+                   lambda: field_prog_plain(FR, prog, leaves, consts, n))
 
     # these launches and plain runs are comparisons: no path's counts
     wrappers, loops = _wrappers(), _plain_loops()
@@ -2627,6 +2661,97 @@ def phase_sharded(report: dict, srs, cache_dir: str) -> None:
         "shards of the card equal the single-device results")
 
 
+# -- phase 8: the mock prover on the card ------------------------------------
+
+MOCK_K = 15
+
+
+def _mock_verify(label: str, mp, launched: dict) -> list:
+    """mp.verify() on the card: its failures as {"kind", "detail"} dicts;
+    logs each part's wall time and the field_prog launches, and keeps the
+    programs it ran in `launched` (by identity)."""
+    from halo2tpu_torch.ops.field_prog import field_prog
+    before = field_prog.launches
+    fails = [{"kind": f.kind, "detail": f.detail} for f in mp.verify()]
+    for prog in mp.programs:
+        launched[id(prog)] = prog
+    times = {p: round(v, 4) for p, v in mp.times.items()}
+    log(f"mock: {label}: {len(fails)} failures, field_prog launches "
+        f"{field_prog.launches - before}, wall s {json.dumps(times)}")
+    for f in fails:
+        log(f"  [{f['kind']}] {f['detail']}")
+    return fails
+
+
+def phase_mock(report: dict) -> None:
+    """The mock prover (plonk/mock.py) on the card at k = 15: RSA-SHA256
+    and the composite satisfied, RSA with MOCK_TAMPER equal to halo2tpu's
+    list (tests/golden/mock_k15_failures.json), the composite with a wrong
+    nullifier seed failing; mont_mul at each lane count and every field
+    program it ran against their plain versions."""
+    import torch
+    from halo2tpu_torch.ops.field_prog import field_prog
+    from halo2tpu_torch.plonk.mock import MockProver
+    with open(os.path.join(ROOT, "tests/golden/mock_k15_failures.json")) as f:
+        golden = json.load(f)
+    if [tuple(t) for t in golden["tamper"]] != list(MOCK_TAMPER):
+        raise AssertionError("mock: the golden's tamper is not MOCK_TAMPER")
+    torch.cuda.empty_cache()
+    rsa, comp = rsa_circuit(), composite_circuit()
+    inst = comp.instances()
+    wrong = [list(inst[0])]
+    wrong[0][0] ^= 1
+    launched: dict = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    mp = MockProver.run(MOCK_K, rsa, rsa.instances(), device="cuda")
+    rsa_ok = _mock_verify("rsa k=15 satisfied", mp, launched)
+    rsa_times = dict(mp.times)
+    for col, row, value in MOCK_TAMPER:
+        mp.asn.advice[col][row] = value
+    rsa_bad = _mock_verify("rsa k=15 with MOCK_TAMPER", mp, launched)
+    mp = MockProver.run(MOCK_K, comp, inst, device="cuda")
+    comp_ok = _mock_verify("composite k=15 satisfied", mp, launched)
+    comp_times = dict(mp.times)
+    mp = MockProver(mp.cs, mp.asn, wrong, mp.n, device="cuda")
+    comp_bad = _mock_verify("composite k=15 nullifier_seed ^ 1", mp,
+                            launched)
+    wall = time.perf_counter() - t0
+    counts, shapes = _counts(), _shapes()
+    _check_no_plain_loops("mock")
+    log(f"mock: four runs in {wall:.2f} s; launches {json.dumps(counts)}")
+    log(f"mock: field_prog shapes ({SHAPE_KEYS['field_prog']}: launches) "
+        f"{json.dumps(_shape_table(shapes['field_prog']))}")
+    if rsa_ok or comp_ok:
+        raise AssertionError("mock: a flagship circuit is not satisfied")
+    if rsa_bad != golden["failures"]:
+        raise AssertionError("mock: the tampered RSA list differs from "
+                             "tests/golden/mock_k15_failures.json")
+    if not comp_bad:
+        raise AssertionError("mock: nullifier_seed ^ 1 gives no failure")
+    _record_path(report, "mock_k15", counts, ("mont_mul", "field_prog"))
+    # mont_mul at every lane count the phase launched it with (the column
+    # encoding, FR.encode and FR.decode), and every field program it ran
+    t0 = time.perf_counter()
+    checked = _path_shape_checks(
+        "mock", {k: shapes[k] for k in ("mont_mul", "field_prog")},
+        list(launched.values()), None, "cuda")
+    log(f"mock: mont_mul at lanes {sorted(k[0] for k in shapes['mont_mul'])}"
+        f" and the {len(launched)} field programs it ran bitwise equal to "
+        f"their plain versions, shapes by kernel {json.dumps(checked)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["field_prog"]["mock"] = {
+        "rsa_k15_s": rsa_times, "composite_k15_s": comp_times,
+        "four_runs_s": wall, "programs": len(launched),
+        "shapes_checked": checked,
+        "launches": counts["field_prog"],
+        "launches_by_program": _field_prog_by_program(shapes["field_prog"]),
+        "tampered_failures": len(rsa_bad),
+        "wrong_instance_failures": len(comp_bad)}
+    log("mock: RSA and the composite satisfied at k=15; the tampered list "
+        "is halo2tpu's; a wrong nullifier seed fails")
+
+
 def _loaded_reference() -> list:
     """Modules of JAX or of the JAX package (halo2tpu) in this process."""
     return sorted(m for m in sys.modules
@@ -2717,6 +2842,7 @@ def main() -> int:
         del eng
         phase_composite(report, srs, cache_dir)
         phase_sharded(report, srs, cache_dir)
+        phase_mock(report)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     loaded = _loaded_reference()

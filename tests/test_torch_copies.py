@@ -17,6 +17,8 @@ COPIES = [
     "gadgets/flexgate.py", "gadgets/range.py", "gadgets/biguint.py",
     "gadgets/rsa.py", "gadgets/sha256.py", "circuits/signal.py",
     "circuits/timestamp.py", "circuits/rsa_sha256.py",
+    # the EVM verifier
+    "evm/yul.py", "evm/verifier.py",
 ]
 
 

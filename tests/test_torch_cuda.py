@@ -814,3 +814,36 @@ def test_sharded_prover_one_shard_a_card(dev):
     proof = create_proof(pk, srs, c, inst, rng_seed=seed, engine=eng)
     assert proof.hex() == golden
     assert verify_proof(vk, srs, inst, proof)
+
+
+@pytest.mark.parametrize("name", ["square_k4", "range_k7", "nullifier_k10",
+                                  "extractor_k8"])
+def test_mock_prover_on_card_matches_cpu(dev, name):
+    """MockProver on the card gives the CPU's failure list (which
+    tests/test_torch_mock.py holds to halo2tpu's): satisfied, an advice
+    cell plus one, a lookup input outside its table, a wrong instance."""
+    from chip_smoke import golden_circuits
+    from halo2tpu_torch.plonk.mock import MockProver
+    c, k, inst, _ = golden_circuits()[name]
+    card = MockProver.run(k, c, inst, device="cuda")
+    cpu = MockProver(card.cs, card.asn, inst, card.n, device="cpu")
+
+    def same(card, cpu):
+        got = [(f.kind, f.detail) for f in card.verify()]
+        assert got == [(f.kind, f.detail) for f in cpu.verify()]
+        return got
+
+    assert same(card, cpu) == []
+    adv = card.asn.advice
+    adv[0][0] = (int(adv[0][0]) + 1) % R
+    tampered = same(card, cpu)
+    lk = next((lk for lk in card.cs.lookups
+               if type(lk.pairs[0][0]).__name__ == "AdviceQuery"), None)
+    if lk is not None:
+        adv[lk.pairs[0][0].column_index][1] = R - 1
+        assert len(same(card, cpu)) > len(tampered)
+    if inst:
+        wrong = [list(col) for col in inst]
+        wrong[0][0] ^= 1
+        same(MockProver(card.cs, card.asn, wrong, card.n, device="cuda"),
+             MockProver(card.cs, card.asn, wrong, card.n, device="cpu"))

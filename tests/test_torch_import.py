@@ -61,7 +61,8 @@ def test_import_needs_no_cuda_nvcc_or_triton():
             "halo2tpu_torch.plonk.sharded, halo2tpu_torch.parallel.mesh, "
             "halo2tpu_torch.parallel.ntt, halo2tpu_torch.parallel.msm, "
             "halo2tpu_torch.parallel.dcn, halo2tpu_torch.parallel.pipeline, "
-            "halo2tpu_torch.parallel.scaling_report\n"
+            "halo2tpu_torch.parallel.scaling_report, "
+            "halo2tpu_torch.plonk.mock, halo2tpu_torch.evm.verifier\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
             "assert _build._lib is None\n")
@@ -92,7 +93,8 @@ def test_port_and_chip_smoke_import_nothing_of_halo2tpu():
                 "circuits/conditional_secrets.py", "circuits/aadhaar_qr.py",
                 "plonk/sharded.py", "parallel/mesh.py", "parallel/ntt.py",
                 "parallel/msm.py", "parallel/dcn.py", "parallel/pipeline.py",
-                "parallel/scaling_report.py"):
+                "parallel/scaling_report.py", "plonk/mock.py", "evm/yul.py",
+                "evm/verifier.py"):
         assert os.path.join(ROOT, "halo2tpu_torch", rel) in paths, rel
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in _imports_of(p)
@@ -132,6 +134,7 @@ def test_entry_points_default_to_the_card():
     from halo2tpu_torch.plonk.domain import make_domain
     from halo2tpu_torch.plonk.engine import TorchEngine
     from halo2tpu_torch.plonk.keygen import keygen
+    from halo2tpu_torch.plonk.mock import MockProver
     from halo2tpu_torch.plonk.prover import create_proof
     from halo2tpu_torch.plonk.srs import setup
     c, srs = SquareCircuit(5), setup(3, cache=False)
@@ -147,6 +150,7 @@ def test_entry_points_default_to_the_card():
         "make_mesh2d": lambda: make_mesh2d(1, 1),
         "run_report": lambda: run_report((1,), 4, 64),
         "FieldSpec.encode": lambda: FR.encode([1]),
+        "MockProver.run": lambda: MockProver.run(4, c, c.instances()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1857,7 +1857,7 @@ def phase_slice(report: dict, cache_dir: str):
     cold_proof = create_proof(pk, srs, c, c.instances(), rng_seed=3,
                               engine=eng)
     cold = time.perf_counter() - t0
-    tr = Tracer("rsa_sha256_proof")
+    tr = Tracer()
     before, shapes_before = _counts(), _shapes()
     t0 = time.perf_counter()
     proof = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng,
@@ -2132,7 +2132,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    kg_tr = Tracer("composite_keygen")
+    kg_tr = Tracer()
     t0 = time.perf_counter()
     pk, vk = keygen(c, k, srs, device="cuda", tracer=kg_tr)
     torch.cuda.synchronize()
@@ -2150,7 +2150,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     t0 = time.perf_counter()
     cold_proof = create_proof(pk, srs, c, inst, rng_seed=7, engine=eng)
     cold = time.perf_counter() - t0
-    tr = Tracer("composite_proof")
+    tr = Tracer()
     before, shapes_before = _counts(), _shapes()
     t0 = time.perf_counter()
     proof = create_proof(pk, srs, c, inst, rng_seed=8, engine=eng, tracer=tr)
@@ -2582,7 +2582,7 @@ def phase_sharded(report: dict, srs, cache_dir: str) -> None:
     cold_proof = create_proof(pk, srs, c, c.instances(), rng_seed=3,
                               engine=eng)
     cold = time.perf_counter() - t0
-    tr = Tracer("rsa_sharded_proof")
+    tr = Tracer()
     before, shapes_before = _counts(), _shapes()
     t0 = time.perf_counter()
     proof = create_proof(pk, srs, c, c.instances(), rng_seed=4, engine=eng,

@@ -21,6 +21,7 @@ import torch
 from .bn254 import Q, R as FR_MOD
 from ..ops import cuda_field
 from ..ops.cuda_field import i32, u64  # noqa: F401  (the limb helpers)
+from ..utils import trace
 
 NLIMB = 8
 LIMB_BITS = 32
@@ -137,14 +138,19 @@ class FieldSpec:
     def from_mont(self, a):
         return mont_mul(self, a, self.const("one_plain", a.device))
 
+    # A traced proof counts the bytes each encode copies to the device
+    # (h2d_bytes) and each decode, a blocking read (d2h_reads; the
+    # engine's lookup check counts the prover's one other).
     def encode(self, vals, device="cuda") -> torch.Tensor:
         """python ints -> (n, 8) Montgomery tensor on `device`."""
         limbs = ints_to_limbs([v % self.p for v in vals]).copy()
+        trace.current().count("h2d_bytes", limbs.nbytes)
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 
     def encode_packed(self, u16_arr, device="cuda") -> torch.Tensor:
         """(..., 16) uint16 plain limbs (host numpy) -> Montgomery."""
         limbs = limbs16_to_limbs(u16_arr).copy()
+        trace.current().count("h2d_bytes", limbs.nbytes)
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 
     def encode_narrow_stack(self, main_u16, tail_u16, split: int,
@@ -153,8 +159,11 @@ class FieldSpec:
         (L, n - split, 16) full limbs of the tail rows -> (L, n, 8)
         Montgomery."""
         d = device_of(device)
-        main = torch.from_numpy(np.asarray(main_u16).astype(np.int32)).to(d)
-        tail = torch.from_numpy(limbs16_to_limbs(tail_u16).copy()).to(d)
+        main = np.asarray(main_u16).astype(np.int32)
+        tail = limbs16_to_limbs(tail_u16).copy()
+        trace.current().count("h2d_bytes", main.nbytes + tail.nbytes)
+        main = torch.from_numpy(main).to(d)
+        tail = torch.from_numpy(tail).to(d)
         L, n = main.shape
         limbs = torch.zeros((L, n, NLIMB), dtype=torch.int32, device=d)
         limbs[:, :, 0] = main
@@ -162,6 +171,7 @@ class FieldSpec:
         return self.to_mont(limbs)
 
     def decode(self, arr) -> list[int]:
+        trace.current().count("d2h_reads")
         plain = self.from_mont(arr)
         return limbs_to_ints(plain.cpu().numpy())
 

@@ -26,6 +26,7 @@ from ..fields.jfield import FR, NLIMB, device_of
 from ..ops import ntt as tntt
 from ..ops.field_prog import field_prog, groups_for, sum_program
 from ..ops.msm import NUM_WINDOWS, MSMContext, points_tag
+from ..utils import trace
 from .quotient import _horner, compile_program, const_value, expr_ir
 
 
@@ -330,7 +331,12 @@ class TorchEngine:
 
     @staticmethod
     def check_lookup_fails(fails):
-        if fails and bool(torch.stack(fails).any()):
+        """One blocking read of every lookup's failure flag (a traced
+        proof counts it in d2h_reads, beside FieldSpec.decode's)."""
+        if not fails:
+            return
+        trace.current().count("d2h_reads")
+        if bool(torch.stack(fails).any()):
             raise ValueError("lookup failure: input value not in table")
 
     # -- evaluation --------------------------------------------------------

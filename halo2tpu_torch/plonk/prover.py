@@ -12,18 +12,20 @@ and JaxEngine proofs for the same witness and seed.
   evals (advice, fixed, random, sigmas, perm z, lookups)
   SHPLONK multiopen ............................. zeta, nu, W, mu, W'
 
-Tracer phases end with the engine's synchronize (a CUDA synchronize on a
-CUDA engine), so their times are device times, not enqueue times.
+The phases end with the engine's synchronize (a CUDA synchronize on a
+CUDA engine), so their times are device times, not enqueue times.  A
+proof given a `tracer` sends it each phase and keeps its own record of
+the phases, the steps inside and between them, and the host-device
+traffic (utils/trace.py).
 """
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
 
 import numpy as np
 
 from ..fields.bn254 import R, FR_DELTA, inv_mod
-from ..utils.trace import NULL
+from ..utils import trace
 from . import polyops
 from .circuit import Assignment
 from .domain import rotate_omega
@@ -119,19 +121,25 @@ def _get_state(pk: ProvingKey, eng) -> _PkState:
     return cache[key]
 
 
-@contextmanager
-def _phase(tr, name: str, eng):
-    with tr.phase(name):
-        yield
-        eng.synchronize()
+def _phase(rec, name: str, eng):
+    """One of the prover's phases, ended in the engine's synchronize."""
+    return rec.phase(name, eng.synchronize)
 
 
 def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
                  rng_seed: int = 0, engine: TorchEngine | None = None,
                  device="cuda", tracer=None) -> bytes:
     """engine: a TorchEngine for pk's domain (reuse one across proofs to
-    keep its pk state warm); None makes one on `device`."""
-    tr = tracer or NULL
+    keep its pk state warm); None makes one on `device`.  tracer: gets
+    phase(name) for each phase, and makes the proof keep a record
+    (utils/trace.py)."""
+    eng = engine or TorchEngine(pk.vk.domain, srs, device)
+    with trace.proof(tracer, eng.synchronize) as rec:
+        return _prove(pk, srs, circuit, instances, rng_seed, eng, rec)
+
+
+def _prove(pk: ProvingKey, srs, circuit, instances, rng_seed, eng,
+           rec) -> bytes:
     vk = pk.vk
     cs = vk.cs
     d = vk.domain
@@ -140,7 +148,6 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
     u = n - (b + 1)  # unusable rows start
     rng = np.random.default_rng(rng_seed)
 
-    eng = engine or TorchEngine(d, srs, device)
     assert eng.d.n == d.n and eng.d.extended_n == d.extended_n, (
         "engine domain mismatch: make one engine per circuit domain")
     st = _get_state(pk, eng)
@@ -149,43 +156,47 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
     t.common_scalar(vk.transcript_repr)
 
     # -- instances ---------------------------------------------------------
-    for col in instances:
-        assert len(col) <= u, "too many instance rows"
-        for v in col:
-            t.common_scalar(v)
-    instance_ints = []
-    for ci in range(cs.num_instance):
-        vals = [0] * n
-        col = instances[ci] if ci < len(instances) else []
-        for i, v in enumerate(col):
-            vals[i] = v % R
-        instance_ints.append(vals)
-    instance_values = eng.from_ints_stack(instance_ints)
-    instance_polys = eng.lagrange_to_coeff_stack(instance_values)
+    with rec.span("instances"):
+        for col in instances:
+            assert len(col) <= u, "too many instance rows"
+            for v in col:
+                t.common_scalar(v)
+        instance_ints = []
+        for ci in range(cs.num_instance):
+            vals = [0] * n
+            col = instances[ci] if ci < len(instances) else []
+            for i, v in enumerate(col):
+                vals[i] = v % R
+            instance_ints.append(vals)
+        instance_values = eng.from_ints_stack(instance_ints)
+        instance_polys = eng.lagrange_to_coeff_stack(instance_values)
 
     # -- phase 1: advice ---------------------------------------------------
     asn = Assignment(cs, n, recording=False)
-    with _phase(tr, "synthesize", eng):
-        circuit.synthesize(pk.config, asn)
-        advice_ints = []
-        advice_bits = []    # pre-blinding value bound -> narrow MSM planes
-        for col in asn.advice:
-            vals = col.tolist()
-            advice_bits.append(max(vals).bit_length())
-            for i in range(u, n):
-                vals[i] = _rng_field(rng)
-            advice_ints.append(vals)
-    with _phase(tr, "advice_ntt", eng):
-        advice_values = eng.from_ints_stack(advice_ints, reduced=True,
-                                            bits=advice_bits, blind_start=u)
-        advice_polys = eng.lagrange_to_coeff_stack(advice_values)
+    with _phase(rec, "synthesize", eng):
+        with rec.span("synthesize.circuit"):
+            circuit.synthesize(pk.config, asn)
+        with rec.span("synthesize.rows"):
+            advice_ints = []
+            advice_bits = []    # pre-blinding value bound -> narrow planes
+            for col in asn.advice:
+                vals = col.tolist()
+                advice_bits.append(max(vals).bit_length())
+                for i in range(u, n):
+                    vals[i] = _rng_field(rng)
+                advice_ints.append(vals)
+    with _phase(rec, "advice_ntt", eng):
+        with rec.span("advice_ntt.encode"):
+            advice_values = eng.from_ints_stack(
+                advice_ints, reduced=True, bits=advice_bits, blind_start=u)
+        with rec.span("advice_ntt.intt"):
+            advice_polys = eng.lagrange_to_coeff_stack(advice_values)
     del advice_ints
-    with _phase(tr, "commit_advice", eng):
+    with _phase(rec, "commit_advice", eng):
         for p in eng.commit_lagrange_batch(advice_values,
                                            value_bits=advice_bits,
                                            blind_start=u):
             t.write_point(p)
-    tr.count("advice_columns", len(advice_values))
 
     theta = t.squeeze_challenge()
     lag_vals = {"advice": advice_values, "fixed": st.fixed_lag,
@@ -193,7 +204,7 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
 
     # -- lookups: permuted pairs -------------------------------------------
     lookup_state = []
-    with _phase(tr, "lookups_permute", eng):
+    with _phase(rec, "lookups_permute", eng):
         ci_devs, ct_devs = [], []
         for lk in cs.lookups:
             ci_devs.append(eng.compress_exprs([p[0] for p in lk.pairs],
@@ -220,7 +231,7 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
             lk_s["a_vec"] = lookup_perm_vecs[2 * i]
             lk_s["s_vec"] = lookup_perm_vecs[2 * i + 1]
         eng.check_lookup_fails(lookup_fails)
-    with _phase(tr, "commit_lookup_permuted", eng):
+    with _phase(rec, "commit_lookup_permuted", eng):
         perm_bits = [bb for lk in cs.lookups
                      for bb in (getattr(lk, "max_bits", None),) * 2]
         for p in eng.commit_lagrange_batch(lookup_perm_vecs,
@@ -246,7 +257,7 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
 
     deltas = [pow(FR_DELTA, j, R) for j in range(len(perm_cols))]
 
-    with _phase(tr, "grand_products", eng):
+    with _phase(rec, "grand_products", eng):
         gidx = 0
         chunk_cols, chunk_sigmas, chunk_deltas = [], [], []
         for chunk in chunks:
@@ -284,30 +295,31 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
         all_z = eng.assemble_z_batch(prefixes, heads, n - b, blinds)
         z_values = all_z[:len(chunks)]
         lookup_z_vecs = all_z[len(chunks):]
-    z_polys = eng.lagrange_to_coeff_stack(z_values)
-    lookup_poly_stack = eng.lagrange_to_coeff_stack(
-        lookup_z_vecs + [lk_s["a_vec"] for lk_s in lookup_state]
-        + [lk_s["s_vec"] for lk_s in lookup_state])
-    nlk = len(lookup_state)
-    for i, lk_s in enumerate(lookup_state):
-        lk_s["z_poly"] = lookup_poly_stack[i]
-        lk_s["a_poly"] = lookup_poly_stack[nlk + i]
-        lk_s["s_poly"] = lookup_poly_stack[2 * nlk + i]
-    with _phase(tr, "commit_z", eng):
+    with rec.span("z_intt"):
+        z_polys = eng.lagrange_to_coeff_stack(z_values)
+        lookup_poly_stack = eng.lagrange_to_coeff_stack(
+            lookup_z_vecs + [lk_s["a_vec"] for lk_s in lookup_state]
+            + [lk_s["s_vec"] for lk_s in lookup_state])
+        nlk = len(lookup_state)
+        for i, lk_s in enumerate(lookup_state):
+            lk_s["z_poly"] = lookup_poly_stack[i]
+            lk_s["a_poly"] = lookup_poly_stack[nlk + i]
+            lk_s["s_poly"] = lookup_poly_stack[2 * nlk + i]
+    with _phase(rec, "commit_z", eng):
         for p in eng.commit_lagrange_batch(z_values + lookup_z_vecs):
             t.write_point(p)
 
-    # vanishing random poly
-    random_ints = [_rng_field(rng) for _ in range(n)]
-    random_poly = eng.from_ints(random_ints)
-    t.write_point(eng.commit_batch([random_poly])[0])
+    with rec.span("random_poly"):       # the vanishing argument's
+        random_ints = [_rng_field(rng) for _ in range(n)]
+        random_poly = eng.from_ints(random_ints)
+        t.write_point(eng.commit_batch([random_poly])[0])
 
     y = t.squeeze_challenge()
 
     # -- phase 3: quotient (part-wise) -------------------------------------
     advice_values = None
     lag_vals["advice"] = None
-    with _phase(tr, "quotient", eng):
+    with _phase(rec, "quotient", eng):
         srcs = dict(
             advice_polys=advice_polys,
             instance_polys=instance_polys,
@@ -317,7 +329,7 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
         )
         ch = dict(theta=theta, beta=beta, gamma=gamma, y=y)
         h_chunks = fold_quotient(eng, cs, d, st, srcs, ch)
-    with _phase(tr, "commit_h", eng):
+    with _phase(rec, "commit_h", eng):
         for p in eng.commit_batch(h_chunks):
             t.write_point(p)
 
@@ -325,7 +337,7 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
     xn = pow(x, n, R)
 
     # -- evaluations -------------------------------------------------------
-    with _phase(tr, "evals", eng):
+    with _phase(rec, "evals", eng):
         x_next = rotate_omega(d, x, 1)
         x_last = rotate_omega(d, x, -(b + 1))
         x_prev = rotate_omega(d, x, -1)
@@ -349,31 +361,32 @@ def create_proof(pk: ProvingKey, srs, circuit, instances: list[list[int]],
         for v in eng.eval_polys(pairs):
             t.write_scalar(v)
     # -- multiopen queries (order pins SHPLONK set structure) --------------
-    h_folded = eng.const_vec(0, n)
-    for c in reversed(h_chunks):
-        h_folded = eng.add(eng.scale(h_folded, xn), c)
+    with rec.span("h_fold"):
+        h_folded = eng.const_vec(0, n)
+        for c in reversed(h_chunks):
+            h_folded = eng.add(eng.scale(h_folded, xn), c)
 
-    queries: list[Query] = []
-    for ci, rot in cs.advice_queries:
-        queries.append(Query(("advice", ci), advice_polys[ci], rot))
-    for j, zp in enumerate(z_polys):
-        queries.append(Query(("perm_z", j), zp, 0))
-        queries.append(Query(("perm_z", j), zp, 1))
-    for j in range(len(z_polys) - 2, -1, -1):
-        queries.append(Query(("perm_z", j), z_polys[j], -(b + 1)))
-    for li, lk_s in enumerate(lookup_state):
-        queries.append(Query(("lk_z", li), lk_s["z_poly"], 0))
-        queries.append(Query(("lk_a", li), lk_s["a_poly"], 0))
-        queries.append(Query(("lk_s", li), lk_s["s_poly"], 0))
-        queries.append(Query(("lk_a", li), lk_s["a_poly"], -1))
-        queries.append(Query(("lk_z", li), lk_s["z_poly"], 1))
-    for ci, rot in cs.fixed_queries:
-        queries.append(Query(("fixed", ci), st.fixed_polys[ci], rot))
-    for j, sp in enumerate(st.sigma_polys):
-        queries.append(Query(("sigma", j), sp, 0))
-    queries.append(Query(("h",), h_folded, 0))
-    queries.append(Query(("random",), random_poly, 0))
+        queries: list[Query] = []
+        for ci, rot in cs.advice_queries:
+            queries.append(Query(("advice", ci), advice_polys[ci], rot))
+        for j, zp in enumerate(z_polys):
+            queries.append(Query(("perm_z", j), zp, 0))
+            queries.append(Query(("perm_z", j), zp, 1))
+        for j in range(len(z_polys) - 2, -1, -1):
+            queries.append(Query(("perm_z", j), z_polys[j], -(b + 1)))
+        for li, lk_s in enumerate(lookup_state):
+            queries.append(Query(("lk_z", li), lk_s["z_poly"], 0))
+            queries.append(Query(("lk_a", li), lk_s["a_poly"], 0))
+            queries.append(Query(("lk_s", li), lk_s["s_poly"], 0))
+            queries.append(Query(("lk_a", li), lk_s["a_poly"], -1))
+            queries.append(Query(("lk_z", li), lk_s["z_poly"], 1))
+        for ci, rot in cs.fixed_queries:
+            queries.append(Query(("fixed", ci), st.fixed_polys[ci], rot))
+        for j, sp in enumerate(st.sigma_polys):
+            queries.append(Query(("sigma", j), sp, 0))
+        queries.append(Query(("h",), h_folded, 0))
+        queries.append(Query(("random",), random_poly, 0))
 
-    with _phase(tr, "shplonk", eng):
+    with _phase(rec, "shplonk", eng):
         shplonk_open(t, srs, d, queries, x, eng)
     return bytes(t.proof)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from ..fields.bn254 import R, to_bytes_be
 from ..ops.keccak import keccak256
+from ..utils import trace
 
 
 class KeccakTranscript:
@@ -40,13 +41,16 @@ class KeccakTranscript:
         """Squeeze a challenge.  If nothing was absorbed since the previous
         squeeze this is automatically the contract's squeeze_challenge_cont
         (append 0x01; contract.sol:106-112)."""
-        data = bytes(self.buf)
-        if self._absorbed == 0:
-            data += b"\x01"
-        h = keccak256(data)
-        self.buf = bytearray(h)
-        self._absorbed = 0
-        return int.from_bytes(h, "big") % R
+        rec = trace.current()
+        with rec.span("transcript.squeeze"):
+            data = bytes(self.buf)
+            if self._absorbed == 0:
+                data += b"\x01"
+            rec.count("keccak_bytes", len(data))
+            h = keccak256(data)
+            self.buf = bytearray(h)
+            self._absorbed = 0
+            return int.from_bytes(h, "big") % R
 
 
 class ProofWriter(KeccakTranscript):

@@ -17,8 +17,11 @@ each warm proof, the launches of each kernel wrapper the tree counts (per
 warm proof) with mont_mul's lane histogram, and from the profiled proof
 the CUDA kernels the card ran (the tree's own and torch's; the count and
 device ms of each of the tree's own kernels by name), the device busy
-share, and the sha256 of the proof bytes (the proof must verify).
-Without CUDA it exits non-zero.
+share, and the sha256 of the proof bytes (the proof must verify).  On
+stderr it prints each warm proof's record, for a tree that keeps one
+(halo2tpu_torch/utils/trace.py): the span tree with each span's host,
+wait and self seconds, the time outside the top-level spans, and the
+counters.  Without CUDA it exits non-zero.
 
 With --kernels it times, instead of a proof, the calls whose kernels a
 tree may have changed, at a k=15 proof's shapes, through the tree's own
@@ -71,6 +74,27 @@ def _union_us(spans) -> float:
             total += e - end
             end = e
     return total
+
+
+def record_lines(rec) -> list[str]:
+    """A proof's record as text: the span tree, each span's host seconds
+    (to its synchronize), wait on the device and self seconds (less its
+    children), then the wall outside the top-level spans and the
+    counters."""
+    depth, lines, top = {}, [], 0.0
+    for i, s in enumerate(rec.spans):
+        depth[i] = 0 if s.parent is None else depth[s.parent] + 1
+        child = sum(c.end - c.start for c in rec.spans if c.parent == i)
+        if s.parent is None:
+            top += s.end - s.start
+        lines.append(f"{'  ' * depth[i]}{s.name}: host "
+                     f"{s.host_end - s.start:.4f} wait "
+                     f"{s.end - s.host_end:.4f} self "
+                     f"{s.end - s.start - child:.4f}")
+    wall = rec.end - rec.start
+    return ([f"proof {rec.request}: wall {wall:.4f} s"] + lines
+            + [f"outside the spans {wall - top:.4f}",
+               f"counters {json.dumps(dict(rec.counters))}"])
 
 
 def busy_from_trace(events, names=()) -> dict:
@@ -340,6 +364,7 @@ def main() -> int:
     from halo2tpu_torch.plonk.prover import create_proof
     from halo2tpu_torch.plonk.srs import setup
     from halo2tpu_torch.plonk.verifier import verify_proof
+    from halo2tpu_torch.utils import trace
     from halo2tpu_torch.utils.trace import Tracer
     import halo2tpu_torch
     if not halo2tpu_torch.__file__.startswith(tree):
@@ -372,7 +397,7 @@ def main() -> int:
         wrappers = _wrappers()
         warm, phases = [], []
         for _ in range(WARM):
-            tr = Tracer("warm")
+            tr = Tracer()
             for w in wrappers.values():
                 w.launches = 0
                 w.shapes.clear()
@@ -381,6 +406,9 @@ def main() -> int:
                          tracer=tr)
             warm.append(time.perf_counter() - t0)
             phases.append(dict(tr.phases))
+            if hasattr(trace, "recent"):    # a tree that keeps records
+                for line in record_lines(trace.recent()[-1]):
+                    print("profile_proof: " + line, file=sys.stderr)
         out["warm_proof_s"], out["phases_s"] = warm, phases
         out["launches_per_warm_proof"] = {n: w.launches
                                           for n, w in wrappers.items()}

@@ -830,9 +830,9 @@ def phase_kernels(report: dict, card: Card) -> None:
     for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
         edge = [p - 1, p - 2, 1, (1 << 254) % p]
         ea = torch.from_numpy(jfield.ints_to_limbs(
-            [x for x in edge for _ in edge]).copy())
+            [x for x in edge for _ in edge]))
         eb = torch.from_numpy(jfield.ints_to_limbs(
-            [y for _ in edge for y in edge]).copy())
+            [y for _ in edge for y in edge]))
         a = torch.cat([_rand_fe(g, n, dev), ea.to(dev)])
         b = torch.cat([_rand_fe(g, n, dev), eb.to(dev)])
         rinv = pow(1 << 256, -1, p)
@@ -893,7 +893,7 @@ def phase_kernels(report: dict, card: Card) -> None:
 
     for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
         edge = torch.from_numpy(jfield.ints_to_limbs(
-            [0, 1, p - 1, (1 << 256) % p]).copy()).to(dev)
+            [0, 1, p - 1, (1 << 256) % p])).to(dev)
         a = torch.cat([edge, _rand_fe(g, 4093, dev)])
         for lanes in (1, 16, 80, 4097):
             for e in (0, 1, 2, p - 2):
@@ -1032,7 +1032,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     # (a coset column times its row), and at 2^20 lanes
     for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
         edge = torch.from_numpy(jfield.ints_to_limbs(
-            [0, 1, p - 1]).copy()).to(dev)
+            [0, 1, p - 1])).to(dev)
         x = torch.cat([edge.repeat_interleave(3, 0), _rand_fe(g, 4087, dev)])
         y = torch.cat([edge.repeat(3, 1), _rand_fe(g, 4087, dev)])
         for op, fn, plain in (("add", cuda_field.add, cuda_field.add_plain),

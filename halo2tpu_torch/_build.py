@@ -12,6 +12,12 @@ counts each kernel's machine instructions (`cuobjdump -sass`).
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0.
+
+`host_lib()` builds `csrc/host_pack.c` (the packing of Python ints into
+the limb wire, against CPython's API) with the host C compiler, so it
+builds and runs on a machine without CUDA too, and loads it with
+ctypes.PyDLL (calls hold the interpreter lock).  It raises as `lib()`
+does: there is no fallback.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import os
 import re
 import shutil
 import subprocess
+import sys
+import sysconfig
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -68,7 +76,11 @@ _SIGNATURES = {
     "h2_fold_horner": [_P, _P, _I32, _I32, _I32, _P, _P],
 }
 
+HOST_SRC = os.path.join(CSRC, "host_pack.c")
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
 _lib = None
+_host_lib = None
 library: str | None = None           # path of the loaded library
 build_seconds: float | None = None   # wall time of this process's build
 resources: dict = {}                 # kernel -> parse_ptxas() entry
@@ -268,3 +280,34 @@ def lib() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def host_lib() -> ctypes.PyDLL:
+    """The host packer (csrc/host_pack.c), built with `cc` on the first
+    call into a file named by a hash of its source, the flags and the
+    Python version; its entries take (sequence, pointer, count) and return
+    the count of values that took the long path (ssize_t)."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with open(HOST_SRC, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(HOST_FLAGS).encode() + sys.version.encode())
+    so = os.path.join(BUILD, f"libhalo2tpu_host_{h.hexdigest()[:12]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["cc", *HOST_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+               HOST_SRC, "-o", tmp]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"cc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)
+    loaded = ctypes.PyDLL(so)
+    for name in ("pack_limbs16", "pack_u16"):
+        fn = getattr(loaded, name)
+        fn.argtypes = [ctypes.py_object, _P, ctypes.c_ssize_t]
+        fn.restype = ctypes.c_ssize_t
+    _host_lib = loaded
+    return _host_lib

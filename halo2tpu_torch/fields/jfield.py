@@ -10,6 +10,8 @@ mont_mul, mont_pow, add/sub/neg, the prefix and suffix sums (the linear
 scan) and the prefix products (the product scan) launch the CUDA kernels
 (ops/cuda_field.py) for CUDA tensors and run their plain torch versions
 for CPU tensors (the prefix product's: blocked rounds of mont_mul).
+Python ints become host limbs through the host packer (csrc/host_pack.c,
+pack_limbs16 and pack_u16), on every device.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .bn254 import Q, R as FR_MOD
+from .. import _build
 from ..ops import cuda_field
 from ..ops.cuda_field import i32, u64  # noqa: F401  (the limb helpers)
 from ..utils import trace
@@ -36,11 +39,44 @@ def int_to_limbs(v: int) -> np.ndarray:
                     dtype=np.uint32).view(np.int32)
 
 
+def _pack(entry: str, vals, out: np.ndarray, row: tuple) -> None:
+    """The first len(out) ints of vals into out, of rows shaped `row`,
+    through the host packer (csrc/host_pack.c); a traced proof counts the
+    values (pack_values) and those that took the packer's long path, at or
+    above 2^30 (pack_long_values)."""
+    if out.dtype != np.dtype("<u2") or out.shape[1:] != row or not (
+            out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError(f"{entry}: out must be a writable C-contiguous "
+                         f"<u2 array of rows {row}")
+    n = out.shape[0]
+    if n > len(vals):
+        raise ValueError(f"{entry}: {n} rows, {len(vals)} values")
+    long_values = getattr(_build.host_lib(), entry)(vals, out.ctypes.data, n)
+    rec = trace.current()
+    rec.count("pack_values", n)
+    rec.count("pack_long_values", long_values)
+
+
+def pack_limbs16(vals, out: np.ndarray) -> None:
+    """Python ints (a list or an object ndarray; numpy integers read
+    through __index__) -> out, (m, 16) uint16: the first m values, each
+    little-endian over 32 bytes.  A value outside [0, 2^256) raises
+    OverflowError, a non-integer TypeError."""
+    _pack("pack_limbs16", vals, out, (16,))
+
+
+def pack_u16(vals, out: np.ndarray) -> None:
+    """Python ints below 2^16 -> out, (m,) uint16: the first m values.  A
+    value outside [0, 2^16) raises OverflowError."""
+    _pack("pack_u16", vals, out, ())
+
+
 def ints_to_limbs16(vals) -> np.ndarray:
     """python ints -> (n, 16) uint16 limbs: the host wire format, and the
     proving key's fixed-column format (shared with halo2tpu)."""
-    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    return np.frombuffer(buf, dtype="<u2").reshape(len(vals), 16)
+    out = np.empty((len(vals), 16), "<u2")
+    pack_limbs16(vals, out)
+    return out
 
 
 def limbs16_to_limbs(u16) -> np.ndarray:
@@ -143,13 +179,14 @@ class FieldSpec:
     # engine's lookup check counts the prover's one other).
     def encode(self, vals, device="cuda") -> torch.Tensor:
         """python ints -> (n, 8) Montgomery tensor on `device`."""
-        limbs = ints_to_limbs([v % self.p for v in vals]).copy()
+        limbs = ints_to_limbs([v % self.p for v in vals])
         trace.current().count("h2d_bytes", limbs.nbytes)
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 
     def encode_packed(self, u16_arr, device="cuda") -> torch.Tensor:
-        """(..., 16) uint16 plain limbs (host numpy) -> Montgomery."""
-        limbs = limbs16_to_limbs(u16_arr).copy()
+        """(..., 16) uint16 plain limbs (host numpy, writable: the tensor
+        made on the CPU views them until to_mont) -> Montgomery."""
+        limbs = limbs16_to_limbs(u16_arr)
         trace.current().count("h2d_bytes", limbs.nbytes)
         return self.to_mont(torch.from_numpy(limbs).to(device_of(device)))
 

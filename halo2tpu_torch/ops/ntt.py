@@ -47,10 +47,9 @@ class NTTPlan:
         tws = [FR.r % R] * (n // 2)
         for t in range(1, n // 2):
             tws[t] = tws[t - 1] * omega % R
-        self.tw_flat = torch.from_numpy(ints_to_limbs(tws).copy()).to(
-            self.device)
+        self.tw_flat = torch.from_numpy(ints_to_limbs(tws)).to(self.device)
         self.n_inv = torch.from_numpy(
-            ints_to_limbs([inv_mod(n, R) * FR.r % R])[0].copy()).to(
+            ints_to_limbs([inv_mod(n, R) * FR.r % R])[0]).to(
             self.device)
 
 

@@ -33,7 +33,7 @@ def _twiddles(n1: int, n2: int, omega: int) -> torch.Tensor:
             row[j2] = cur
         rows.extend(row)
     limbs = ints_to_limbs([v * FR.r % R for v in rows])
-    return torch.from_numpy(limbs.copy()).reshape(n1, n2, NLIMB)
+    return torch.from_numpy(limbs).reshape(n1, n2, NLIMB)
 
 
 def twiddle_matrix(n1: int, n2: int, omega: int) -> torch.Tensor:

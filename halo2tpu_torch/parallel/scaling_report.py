@@ -82,7 +82,7 @@ def run_report(dev_counts=(1, 2, 4, 8), ntt_k=14, msm_n=1 << 10,
     points = affine_to_device(pts, have[0])
     scalars = torch.from_numpy(ints_to_limbs(
         [int.from_bytes(rng.bytes(31), "big") % R for _ in range(msm_n)]
-    ).copy()).reshape(1, msm_n, 8).to(have[0])
+    )).reshape(1, msm_n, 8).to(have[0])
 
     report = {"devices": list(dev_counts), "backend": kind, "ntt": {},
               "msm": {}, "device": {"name": name, "count": len(have),

@@ -112,28 +112,30 @@ class TorchEngine:
                         blind_start=None):
         """Equal-length int columns -> list of (n, 8) vectors in one packed
         transfer.  Columns with bits <= 16 ride a u16 value wire with their
-        full-width blinding tail (rows >= blind_start) patched in."""
+        full-width blinding tail (rows >= blind_start) patched in.  The
+        host packer writes each column into one preallocated matrix."""
         if not cols:
             return []
+        n = len(cols[0])
         out = [None] * len(cols)
         narrow = [i for i, b in enumerate(bits or [])
                   if b is not None and b <= 16] if blind_start else []
         rest = [i for i in range(len(cols)) if i not in set(narrow)]
         if narrow:
-            n = len(cols[narrow[0]])
             main = np.zeros((len(narrow), n), "<u2")
-            tails = []
+            tails = np.empty((len(narrow), n - blind_start, 16), "<u2")
             for j, i in enumerate(narrow):
-                main[j, :blind_start] = cols[i][:blind_start]
-                tails.append(jfield.ints_to_limbs16(cols[i][blind_start:]))
-            enc = FR.encode_narrow_stack(main, np.stack(tails), blind_start,
+                jfield.pack_u16(cols[i], main[j, :blind_start])
+                jfield.pack_limbs16(cols[i][blind_start:], tails[j])
+            enc = FR.encode_narrow_stack(main, tails, blind_start,
                                          self.device)
             for j, i in enumerate(narrow):
                 out[i] = enc[j]
         if rest:
-            u16 = np.stack([jfield.ints_to_limbs16(
-                cols[i] if reduced else [v % R for v in cols[i]])
-                for i in rest])
+            u16 = np.empty((len(rest), n, 16), "<u2")
+            for j, i in enumerate(rest):
+                jfield.pack_limbs16(
+                    cols[i] if reduced else [v % R for v in cols[i]], u16[j])
             stacked = FR.encode_packed(u16, self.device)
             for j, i in enumerate(rest):
                 out[i] = stacked[j]

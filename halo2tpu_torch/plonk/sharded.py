@@ -96,7 +96,7 @@ class _FlatFourStep:
             twiddle_matrix(n1, n2, omega)).blocks
         self._post = (None if scale is None else mesh.replicate(
             torch.from_numpy(jfield.ints_to_limbs(
-                [scale * FR.r % R])[0].copy())))
+                [scale * FR.r % R])[0])))
 
     def __call__(self, x):
         blocks = x.blocks if isinstance(x, Sharded) else x

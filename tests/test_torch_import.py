@@ -65,7 +65,7 @@ def test_import_needs_no_cuda_nvcc_or_triton():
             "halo2tpu_torch.plonk.mock, halo2tpu_torch.evm.verifier\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
-            "assert _build._lib is None\n")
+            "assert _build._lib is None and _build._host_lib is None\n")
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

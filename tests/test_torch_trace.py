@@ -83,8 +83,10 @@ def _prove(keys, name="square_k3", engine=HostCommitEngine, **kw):
 
 
 def _count_io(mp, seen):
-    """Patch the field encodings and decodings and the lookup check to add
-    to seen: bytes encoded, decodes, lookup checks that read a flag."""
+    """Patch the field encodings and decodings, the host packer and the
+    lookup check to add to seen: bytes encoded, decodes, lookup checks
+    that read a flag, values packed and those of them at or above 2^30
+    (the packer's long path)."""
     fs = jfield.FieldSpec
     enc, packed, narrow, dec = (fs.encode, fs.encode_packed,
                                 fs.encode_narrow_stack, fs.decode)
@@ -110,10 +112,19 @@ def _count_io(mp, seen):
         seen["checks"] += bool(fails)
         return check(fails)
 
+    def counted(pack):
+        def counted_pack(vals, out):
+            seen["packed"] += len(out)
+            seen["long"] += sum(int(v) >= 1 << 30 for v in vals[:len(out)])
+            return pack(vals, out)
+        return counted_pack
+
     for name, fn in (("encode", encode), ("encode_packed", encode_packed),
                      ("encode_narrow_stack", encode_narrow_stack),
                      ("decode", decode)):
         mp.setattr(fs, name, fn)
+    for name in ("pack_limbs16", "pack_u16"):
+        mp.setattr(jfield, name, counted(getattr(jfield, name)))
     mp.setattr(TorchEngine, "check_lookup_fails",
                staticmethod(check_lookup_fails))
 
@@ -122,7 +133,7 @@ def _count_io(mp, seen):
 def traced(keys):
     """Two traced proofs with a logging outer tracer, their records and
     what the field encodings, decodings and lookup checks made."""
-    seen = {"bytes": 0, "decodes": 0, "checks": 0}
+    seen = {"bytes": 0, "decodes": 0, "checks": 0, "packed": 0, "long": 0}
     mp = pytest.MonkeyPatch()
     _count_io(mp, seen)
     try:
@@ -183,10 +194,21 @@ def test_counters_count_the_encodes_and_decodes(traced):
     assert records[0].counters == records[1].counters
 
 
+def test_counters_count_the_packed_values(traced):
+    """pack_values counts every value the host packer wrote in the proof
+    (advice, instances, the random polynomial, SHPLONK's interpolants),
+    pack_long_values those that took its long path."""
+    _, records, counts = traced
+    for rec, seen in zip(records, counts):
+        assert rec.counters["pack_values"] == seen["packed"] > 0
+        assert rec.counters["pack_long_values"] == seen["long"] > 0
+        assert seen["long"] <= seen["packed"]
+
+
 def test_the_lookup_check_is_a_counted_read(keys, monkeypatch):
     """A circuit with lookups reads their failure flags once a proof,
     beside its decodes, and d2h_reads counts that read too."""
-    seen = {"bytes": 0, "decodes": 0, "checks": 0}
+    seen = {"bytes": 0, "decodes": 0, "checks": 0, "packed": 0, "long": 0}
     _count_io(monkeypatch, seen)
     _prove(keys, "range_k7", tracer=trace.Tracer())
     rec = trace.recent()[-1]

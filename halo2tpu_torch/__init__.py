@@ -7,8 +7,8 @@ first use (_build.py).  On CPU tensors every kernel wrapper runs its plain
 torch version instead.
 
 The package stands alone: it imports torch, never jax and nothing of
-halo2tpu.  The host layers it needs (BN254 host field and curve code, the
-pure-Python keccak, circuit IR, domain, polyops, transcript, SHPLONK, SRS,
+halo2tpu.  The host layers it needs (BN254 host field and curve code,
+keccak, circuit IR, domain, polyops, transcript, SHPLONK, SRS,
 the key layer, verifier, gadgets and circuits) are copies of halo2tpu's at
 the mirrored paths, so a reader finds each counterpart.  Entry points run
 on the CUDA device unless the caller passes device="cpu".

@@ -14,10 +14,11 @@ Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0.
 
 `host_lib()` builds `csrc/host_pack.c` (the packing of Python ints into
-the limb wire, against CPython's API) with the host C compiler, so it
-builds and runs on a machine without CUDA too, and loads it with
-ctypes.PyDLL (calls hold the interpreter lock).  It raises as `lib()`
-does: there is no fallback.
+the limb wire, against CPython's API, and the reduction of random words
+into it) and `csrc/host_keccak.c` (the transcript's Keccak-256) with the
+host C compiler into one library, so it builds and runs on a machine
+without CUDA too, and loads it with ctypes.PyDLL (calls hold the
+interpreter lock).  It raises as `lib()` does: there is no fallback.
 """
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ _SIGNATURES = {
     "h2_fold_horner": [_P, _P, _I32, _I32, _I32, _P, _P],
 }
 
-HOST_SRC = os.path.join(CSRC, "host_pack.c")
+HOST_SRCS = [os.path.join(CSRC, f) for f in ("host_pack.c", "host_keccak.c")]
 HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _lib = None
@@ -283,22 +284,26 @@ def check(err: int, name: str) -> None:
 
 
 def host_lib() -> ctypes.PyDLL:
-    """The host packer (csrc/host_pack.c), built with `cc` on the first
-    call into a file named by a hash of its source, the flags and the
-    Python version; its entries take (sequence, pointer, count) and return
-    the count of values that took the long path (ssize_t)."""
+    """The host library (csrc/host_pack.c, csrc/host_keccak.c), built
+    with `cc` on the first call into a file named by a hash of its
+    sources, the flags and the Python version.  The packers take
+    (sequence, pointer, count) and return the count of values that took
+    the long path (ssize_t); reduce_be256 takes (words, count, modulus,
+    out) and keccak256 (data, length, out32)."""
     global _host_lib
     if _host_lib is not None:
         return _host_lib
-    with open(HOST_SRC, "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for src in HOST_SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(HOST_FLAGS).encode() + sys.version.encode())
     so = os.path.join(BUILD, f"libhalo2tpu_host_{h.hexdigest()[:12]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = ["cc", *HOST_FLAGS, f"-I{sysconfig.get_paths()['include']}",
-               HOST_SRC, "-o", tmp]
+               *HOST_SRCS, "-o", tmp]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"cc failed ({res.returncode}):\n"
@@ -309,5 +314,9 @@ def host_lib() -> ctypes.PyDLL:
         fn = getattr(loaded, name)
         fn.argtypes = [ctypes.py_object, _P, ctypes.c_ssize_t]
         fn.restype = ctypes.c_ssize_t
+    loaded.reduce_be256.argtypes = [_P, ctypes.c_ssize_t, _P, _P]
+    loaded.reduce_be256.restype = None
+    loaded.keccak256.argtypes = [_P, ctypes.c_size_t, _P]
+    loaded.keccak256.restype = None
     _host_lib = loaded
     return _host_lib

@@ -14,9 +14,15 @@
  * 2^256 or more, and in pack_u16 one of 2^16 or more raise OverflowError:
  * nothing is truncated.  Each returns how many values took the long path,
  * or -1 with an exception set.
+ *
+ * reduce_be256(in, n, mod, out): n 32-byte big-endian words at in, each
+ * reduced mod `mod` (four little-endian 64-bit words, the top one at least
+ * 2^58, so a word takes at most 64 subtractions) -> n x 32 bytes at out,
+ * little-endian (the limb wire); uses no CPython API.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
+#include <stdint.h>
 #include <string.h>
 
 static int as_bytes32(PyLongObject *v, unsigned char *out)
@@ -99,4 +105,36 @@ Py_ssize_t pack_limbs16(PyObject *seq, void *out, Py_ssize_t n)
 Py_ssize_t pack_u16(PyObject *seq, void *out, Py_ssize_t n)
 {
     return pack(seq, (unsigned char *)out, n, 0);
+}
+
+void reduce_be256(const unsigned char *in, Py_ssize_t n,
+                  const uint64_t *mod, unsigned char *out)
+{
+    for (Py_ssize_t i = 0; i < n; i++, in += 32, out += 32) {
+        uint64_t v[4];                  /* little-endian words */
+        for (int w = 0; w < 4; w++) {
+            uint64_t x = 0;
+            for (int j = 0; j < 8; j++)
+                x = (x << 8) | in[8 * (3 - w) + j];
+            v[w] = x;
+        }
+        for (;;) {
+            int ge = 1;                 /* v >= mod */
+            for (int w = 3; w >= 0; w--)
+                if (v[w] != mod[w]) {
+                    ge = v[w] > mod[w];
+                    break;
+                }
+            if (!ge)
+                break;
+            unsigned borrow = 0;
+            for (int w = 0; w < 4; w++) {
+                uint64_t d = v[w] - mod[w] - borrow;
+                borrow = v[w] < mod[w] || (v[w] == mod[w] && borrow);
+                v[w] = d;
+            }
+        }
+        for (int j = 0; j < 32; j++)
+            out[j] = (unsigned char)(v[j / 8] >> (8 * (j % 8)));
+    }
 }

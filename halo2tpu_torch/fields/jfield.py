@@ -11,7 +11,8 @@ scan) and the prefix products (the product scan) launch the CUDA kernels
 (ops/cuda_field.py) for CUDA tensors and run their plain torch versions
 for CPU tensors (the prefix product's: blocked rounds of mont_mul).
 Python ints become host limbs through the host packer (csrc/host_pack.c,
-pack_limbs16 and pack_u16), on every device.
+pack_limbs16 and pack_u16), and random big-endian words through its
+reduce_be256, on every device.
 """
 from __future__ import annotations
 
@@ -69,6 +70,25 @@ def pack_u16(vals, out: np.ndarray) -> None:
     """Python ints below 2^16 -> out, (m,) uint16: the first m values.  A
     value outside [0, 2^16) raises OverflowError."""
     _pack("pack_u16", vals, out, ())
+
+
+def reduce_be256(raw, mod: int, out: np.ndarray) -> None:
+    """The first len(out) 32-byte big-endian words of raw (bytes), each
+    reduced mod `mod` (2^250 <= mod < 2^256) -> out, (m, 16) uint16: row i
+    is int.from_bytes(raw[32 i:32 i + 32], "big") % mod, little-endian
+    over 32 bytes (csrc/host_pack.c)."""
+    if out.dtype != np.dtype("<u2") or out.shape[1:] != (16,) or not (
+            out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("reduce_be256: out must be a writable C-contiguous "
+                         "<u2 array of rows (16,)")
+    if not 250 < mod.bit_length() <= 256:
+        raise ValueError(f"reduce_be256: a {mod.bit_length()}-bit modulus")
+    n = out.shape[0]
+    if 32 * n > len(raw):
+        raise ValueError(f"reduce_be256: {n} rows, {len(raw)} bytes")
+    words = (ctypes.c_uint64 * 4)(*((mod >> (64 * i)) & ((1 << 64) - 1)
+                                    for i in range(4)))
+    _build.host_lib().reduce_be256(raw, n, words, out.ctypes.data)
 
 
 def ints_to_limbs16(vals) -> np.ndarray:

@@ -2,12 +2,20 @@
 
 Used by the Fiat-Shamir transcript (plonk/transcript.py), which must match the
 on-chain verifier's `keccak256` squeezes byte-for-byte
-(anon-aadhaar-halo2/solidity_verifier_contract/contract.sol:89-112).
+(anon-aadhaar-halo2/solidity_verifier_contract/contract.sol:89-112), by
+keygen's digests and by the EVM interpreter's keccak256 opcode.
 
-Pure-python implementation of Keccak-f[1600] with rate 1088 / capacity 512 and
-0x01 domain padding (Ethereum keccak256, NOT sha3-256's 0x06 padding).
+Keccak-f[1600] with rate 1088 / capacity 512 and 0x01 domain padding
+(Ethereum keccak256, NOT sha3-256's 0x06 padding).  `keccak256` runs the
+permutation in C (csrc/host_keccak.c, in the host library that
+_build.host_lib() builds); `keccak256_plain` is the same hash in pure Python,
+kept as the reference the tests hold the C code to.
 """
 from __future__ import annotations
+
+import ctypes
+
+from .. import _build
 
 _ROUND_CONSTANTS = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -56,7 +64,7 @@ def _keccak_f(state: list[int]) -> None:
         state[0] ^= rc
 
 
-def keccak256(data: bytes) -> bytes:
+def keccak256_plain(data: bytes) -> bytes:
     rate = 136  # bytes (1088 bits)
     state = [0] * 25
     # absorb
@@ -73,3 +81,12 @@ def keccak256(data: bytes) -> bytes:
     # squeeze (one block is enough for 32 bytes)
     out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
     return out
+
+
+def keccak256(data: bytes | bytearray) -> bytes:
+    """keccak256 in C (csrc/host_keccak.c), reading data in place."""
+    if isinstance(data, bytearray):
+        data = (ctypes.c_char * len(data)).from_buffer(data)
+    out = ctypes.create_string_buffer(32)
+    _build.host_lib().keccak256(data, len(data), out)
+    return out.raw

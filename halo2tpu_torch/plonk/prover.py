@@ -24,6 +24,7 @@ import os
 
 import numpy as np
 
+from ..fields import jfield
 from ..fields.bn254 import R, FR_DELTA, inv_mod
 from ..utils import trace
 from . import polyops
@@ -38,6 +39,14 @@ from .quotient import fold_quotient
 
 def _rng_field(rng: np.random.Generator) -> int:
     return int.from_bytes(rng.bytes(32), "big") % R
+
+
+def _rng_field_limbs16(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n draws of _rng_field in one: (n, 16) uint16 limbs of the same
+    values, the generator left in the same state."""
+    out = np.empty((n, 16), "<u2")
+    jfield.reduce_be256(rng.bytes(32 * n), R, out)
+    return out
 
 
 class _PkState:
@@ -310,8 +319,7 @@ def _prove(pk: ProvingKey, srs, circuit, instances, rng_seed, eng,
             t.write_point(p)
 
     with rec.span("random_poly"):       # the vanishing argument's
-        random_ints = [_rng_field(rng) for _ in range(n)]
-        random_poly = eng.from_ints(random_ints)
+        random_poly = eng.from_packed_stack([_rng_field_limbs16(rng, n)])[0]
         t.write_point(eng.commit_batch([random_poly])[0])
 
     y = t.squeeze_challenge()

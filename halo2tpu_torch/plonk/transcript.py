@@ -43,11 +43,10 @@ class KeccakTranscript:
         (append 0x01; contract.sol:106-112)."""
         rec = trace.current()
         with rec.span("transcript.squeeze"):
-            data = bytes(self.buf)
             if self._absorbed == 0:
-                data += b"\x01"
-            rec.count("keccak_bytes", len(data))
-            h = keccak256(data)
+                self.buf.append(1)
+            rec.count("keccak_bytes", len(self.buf))
+            h = keccak256(self.buf)
             self.buf = bytearray(h)
             self._absorbed = 0
             return int.from_bytes(h, "big") % R

@@ -17,7 +17,8 @@ TPU-first departures from the Rust design:
     not the hot path, the prover kernels are);
   * regions are placed greedily into the least-filled physical column
     (same packing idea as halo2-base's min-gate-index context juggling,
-    anon-aadhaar-halo2's dep halo2-base 0.2.2);
+    anon-aadhaar-halo2's dep halo2-base 0.2.2), found in a heap of the
+    columns' fills (gadgets/placement.py);
   * the layout is static given the op stream, so the emitted circuit IR is
     a fixed matrix ready for the vectorized prover.
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 from ..fields.bn254 import R, inv_mod
 from ..plonk.circuit import Assignment, Column, ConstraintSystem
+from .placement import LeastFilled
 
 
 class AssignedValue:
@@ -106,7 +108,8 @@ class GateChip:
         self.cfg = config
         self.asn = asn
         self.usable = asn.usable
-        self.col_fill = [0] * config.num_advice
+        self.cols = LeastFilled(config.num_advice)
+        self.col_fill = self.cols.fill
         self._const_rows: dict[int, int] = {}
         self._n_const = 0
         self.cells_assigned = 0
@@ -140,9 +143,7 @@ class GateChip:
         every flexgate column has enable_equality (configure), so the
         Assignment.copy membership assertion is statically satisfied."""
         n = len(spec)
-        fills = self.col_fill
-        ci = min(range(len(fills)), key=fills.__getitem__)
-        start = fills[ci]
+        ci, start = self.cols.least()
         if start + n > self.usable:
             raise OverflowError(
                 f"advice columns exhausted: region of {n} cells, "
@@ -167,7 +168,7 @@ class GateChip:
         qarr = self._q_arrays[ci]
         for off in gate_offsets:
             qarr[start + off] = 1
-        fills[ci] = start + n
+        self.cols.take(n)
         self.cells_assigned += n
         return out
 
@@ -279,9 +280,7 @@ class GateChip:
         the generic spec-list path costs ~2x in object churn."""
         assert len(a) == len(b) and a
         n = 1 + 3 * len(a)
-        fills = self.col_fill
-        ci = min(range(len(fills)), key=fills.__getitem__)
-        start = fills[ci]
+        ci, start = self.cols.least()
         if start + n > self.usable:
             raise OverflowError(
                 f"advice columns exhausted: region of {n} cells, "
@@ -315,7 +314,7 @@ class GateChip:
         qarr = self._q_arrays[ci]
         for off in range(start, start + n - 1, 3):
             qarr[off] = 1
-        fills[ci] = start + n
+        self.cols.take(n)
         self.cells_assigned += n
         return AssignedValue(col, row - 1, acc)
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 from ..fields.bn254 import R
 from ..plonk.circuit import Assignment, ConstraintSystem
 from .flexgate import AssignedValue, Const, FlexGateConfig, GateChip, Witness
+from .placement import delim_inverse
 
 DELIM = 255
 
@@ -118,8 +119,7 @@ class ExtractorChip:
             asn.assign_advice(c["data"], i, v)
             asn.copy((cell.col, cell.row), (c["data"], i))
             asn.assign_advice(c["is255"], i, f)
-            asn.assign_advice(
-                c["inv"], i, 0 if f else pow((v - DELIM) % R, R - 2, R))
+            asn.assign_advice(c["inv"], i, 0 if f else delim_inverse(v))
             asn.assign_advice(c["cum"], i, cum)
             asn.assign_advice(c["dtag"], i, f * cum)
             asn.assign_advice(c["dpos"], i, f * (i + 1))

@@ -15,6 +15,7 @@ from __future__ import annotations
 from ..fields.bn254 import R
 from ..plonk.circuit import Assignment, Column, ConstraintSystem
 from .flexgate import AssignedValue, Const, FlexGateConfig, GateChip, Witness
+from .placement import LeastFilled, report
 
 
 class RangeStrategyConfig:
@@ -48,7 +49,8 @@ class RangeChip:
         self.gate = gate
         self.asn = asn
         self.bits = cfg.lookup_bits
-        self._cursor = [0] * len(cfg.lookup_advice)
+        self.cols = LeastFilled(len(cfg.lookup_advice))
+        self._cursor = self.cols.fill
         self.lookups_used = 0
 
     def load_table(self) -> None:
@@ -61,13 +63,12 @@ class RangeChip:
 
     # -- primitive: constrain an existing cell to [0, 2^bits) -----------------
     def _lookup_cell(self, cell: AssignedValue) -> None:
-        ci = min(range(len(self._cursor)), key=lambda i: self._cursor[i])
-        row = self._cursor[ci]
+        ci, row = self.cols.least()
         assert row < self.asn.usable, "lookup advice columns exhausted"
         col = self.cfg.lookup_advice[ci]
         self.asn.assign_advice(col, row, cell.value)
         self.asn.copy((cell.col, cell.row), (col, row))
-        self._cursor[ci] = row + 1
+        self.cols.take(1)
         self.lookups_used += 1
 
     def range_check(self, a: AssignedValue, nbits: int) -> list[AssignedValue]:
@@ -140,7 +141,10 @@ class RangeChip:
         return self.gate.not_(hic)
 
     def finalize(self) -> dict:
-        """Occupancy report (tracing aid, SURVEY §5.1)."""
+        """Occupancy report (tracing aid, SURVEY §5.1); adds the regions
+        the gate and lookup columns placed to the traced proof's
+        `placements`."""
+        report(self.gate.cols, self.cols)
         return {
             "gate_cells": self.gate.cells_assigned,
             "gate_fill": list(self.gate.col_fill),

@@ -26,6 +26,7 @@ from __future__ import annotations
 from ..fields.bn254 import R
 from ..plonk.circuit import Assignment, Column, ConstraintSystem
 from .flexgate import AssignedValue, Const, FlexGateConfig, GateChip, Witness
+from .placement import LeastFilled, pow2_consts, report
 
 H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
       0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
@@ -128,7 +129,8 @@ class Sha256Chip:
         self.cfg = cfg
         self.gate = gate
         self.asn = asn
-        self._fill = [0] * cfg.num_lanes
+        self.cols = LeastFilled(cfg.num_lanes)
+        self._fill = self.cols.fill
         self.rows_used = 0
         self._zero = None
         # direct array/handle caches: the bitop/decompose runs are the
@@ -149,10 +151,9 @@ class Sha256Chip:
 
     # -- custom-region emitters ----------------------------------------------
     def _lane_rows(self, n: int):
-        li = min(range(len(self._fill)), key=lambda i: self._fill[i])
-        start = self._fill[li]
+        li, start = self.cols.least()
         assert start + n <= self.asn.usable, "sha lanes exhausted"
-        self._fill[li] = start + n
+        self.cols.take(n)
         self.rows_used += n
         return li, start
 
@@ -250,10 +251,10 @@ class Sha256Chip:
     def _pack_sum(self, bit_groups, extra_cells):
         """sum_g sum_i 2^i * g[i]  +  sum extra_cells, one inner product."""
         vals, coeffs = [], []
+        pow2 = pow2_consts()
         for g in bit_groups:
-            for i, b in enumerate(g):
-                vals.append(b)
-                coeffs.append(Const(pow(2, i, R)))
+            vals.extend(g)
+            coeffs.extend(pow2[:len(g)])
         for c in extra_cells:
             vals.append(c)
             coeffs.append(Const(1))
@@ -475,4 +476,7 @@ class Sha256Chip:
         return out
 
     def occupancy(self) -> dict:
+        """Rows and lane fills; adds the regions the lanes and the gate
+        columns placed to the traced proof's `placements`."""
+        report(self.gate.cols, self.cols)
         return {"sha_rows": self.rows_used, "lane_fill": list(self._fill)}

@@ -3,7 +3,11 @@ the composite Aadhaar circuit at the mini-QR parameters (K = 14, as
 tests/test_aadhaar_composite.py runs it) and RSA-SHA256 at chip_smoke.py's
 k=15 parameters.  The port's copy and halo2tpu's circuit must give the same
 structure digest, synthesized advice and fixed columns, instances and
-permutation mapping."""
+permutation mapping.
+
+At the benchmark's two configurations, synthesis as a proof runs it
+(`recording=False`) on two of its requests: the same advice columns and
+the same stats (the chips' fills from `finalize` and `occupancy`)."""
 import functools
 import json
 import os
@@ -16,8 +20,10 @@ from halo2tpu.circuits import aadhaar_qr as jax_aadhaar
 from halo2tpu.circuits.rsa_sha256 import RSASha256Circuit as JaxRSA
 from halo2tpu.plonk import circuit as jax_circuit
 from halo2tpu.plonk import keygen as jax_keygen
-from halo2tpu_torch.circuits import aadhaar_qr
+from halo2tpu.circuits import rsa_sha256 as jax_rsa_sha256
+from halo2tpu_torch.circuits import aadhaar_qr, rsa_sha256
 from halo2tpu_torch.plonk import circuit, keygen
+from portbench import manifest, traffic
 
 # tests/test_aadhaar_composite.py's MINI_PARAMS, signing the whole QR
 MINI = dict(max_signed_len=160, max_photo=62, max_state=16, num_advice=48,
@@ -94,3 +100,46 @@ def test_composite_mini_outputs_match_halo2tpu():
 def test_mini_qr_is_the_composite_tests_qr():
     from test_aadhaar_composite import build_mini_qr
     assert chip_smoke.mini_qr() == build_mini_qr()
+
+
+# the benchmark's configurations: (cell, halo2tpu's module, the port's)
+BENCH = {"aadhaar_qr_k15": ("aadhaar_k15.fresh_users", jax_aadhaar,
+                            aadhaar_qr),
+         "rsa_sha256_k15": ("rsa_k15.fresh_messages", jax_rsa_sha256,
+                            rsa_sha256)}
+
+
+def _proof_time(c, pkg_circuit, n):
+    cs = pkg_circuit.ConstraintSystem()
+    config = c.configure(cs)
+    asn = pkg_circuit.Assignment(cs, n, recording=False)
+    c.synthesize(config, asn)
+    return [col.tolist() for col in asn.advice], c.stats
+
+
+@functools.lru_cache(maxsize=1)
+def _bench_witnesses(name):
+    """[(halo2tpu's (advice, stats), the port's)] for two requests of the
+    configuration's cell, seed 20260419."""
+    cell_name, jax_mod, port_mod = BENCH[name]
+    cell = manifest.cell(manifest.load(), cell_name)
+    config, mix = cell["config"], cell["mix"]
+    assert config["name"] == name
+    fam = manifest.family(config["family"])
+    n = 1 << config["k"]
+    return [tuple(_proof_time(fam.circuit(config, req, mod), pkg, n)
+                  for mod, pkg in ((jax_mod, jax_circuit),
+                                   (port_mod, circuit)))
+            for req in traffic.requests(mix, config, fam, 20260419, 2)]
+
+
+@pytest.mark.parametrize("part", ["advice", "stats"])
+@pytest.mark.parametrize("name", list(BENCH))
+def test_proof_time_synthesis_matches_halo2tpu(name, part):
+    i = ["advice", "stats"].index(part)
+    pairs = _bench_witnesses(name)
+    for want, got in pairs:
+        assert got[i] == want[i]
+    # two requests, two witnesses, one layout
+    assert pairs[0][1][0] != pairs[1][1][0]
+    assert pairs[0][1][1] == pairs[1][1][1]

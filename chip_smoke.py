@@ -12,51 +12,38 @@ Phases, run in order, each of which raises on failure (non-zero exit):
   2. kernels each kernel against its plain torch version, bitwise, at the
              main paths' shapes (fe_pow at 1, 16, 80 and 4,097 lanes with
              exponents 0, 1, 2 and p - 2, Fr and Fq, timed at 1, 80 and
-             4,097 lanes; field_prog on the
-             RSA-SHA256 and the composite part programs at 2^15 rows,
-             split into sub-programs as the prover compiles them, also
-             against the per-op route it replaces, at most
-             1/FIELD_PROG_OVER_CHAIN of its time at the RSA part, and
-             timed beside the one-program kernel (G = 1); the weighted
-             sum program over 64 vectors against its mont_mul and
-             tree-sum chain; field_linscan at n = 1, 3, 1000 and 2^20
-             (the sum, a multiplier and the product scan, every
-             direction and output, one launch a call) and the product
-             scan over Fr and Fq at odd n, one column and 80, timed at a
-             div_linear of 2^15 rows, an evaluation group of 16 x 2^15,
-             the suffix and prefix sums, the grand products' product
-             scans over 80 columns of 2^15 rows (each against the chain
-             it replaces, and at runs of 4, 16 and 64 beside the rule's
-             32), keygen's batch inversions over Fq (the exclusive
-             product scan of 255 x 16, 255 x 1024 and 2^22 lanes, also at
-             the run the rule did not pick, 4 or 32) and 2^20 rows; the
-             NTT's
-             forward, inverse, coset and h-chunk entries at n = 2^4-2^10
-             with C = 1, 3, 8 columns and batch-less, and (timed) at n =
-             2^15 with C = 64, 60, 34 and 1, 2^10 x 3 and 2^20 x 1; add /
-             sub / neg over Fr and Fq at
+             4,097 lanes; field_prog on the RSA-SHA256 and the composite
+             part programs at 2^15 rows, split into sub-programs as the
+             prover compiles them, and the weighted sum program over 64
+             vectors; field_linscan at n = 1, 3, 1000 and 2^20 (the sum,
+             a multiplier and the product scan, every direction and
+             output, one launch a call) and the product scan over Fr and
+             Fq at odd n, one column and 80, timed at a div_linear of
+             2^15 rows, an evaluation group of 16 x 2^15, the suffix and
+             prefix sums, the grand products' product scans over 80
+             columns of 2^15 rows, keygen's batch inversions over Fq (the
+             exclusive product scan of 255 x 16, 255 x 1024 and 2^22
+             lanes) and 2^20 rows; the NTT's forward, inverse, coset and
+             h-chunk entries at n = 2^4-2^10 with C = 1, 3, 8 columns and
+             batch-less, and (timed) at n = 2^15 with C = 64, 60, 34 and
+             1, 2^10 x 3 and 2^20 x 1; add / sub / neg over Fr and Fq at
              the edge values and broadcast operands, timed at 32,768 and
              2^20 lanes and a 64-column stack plus a per-row operand;
              fold_mixed at the three widths of a k=15 commit,
              fold_dbl_any at 2^20 lanes once and 16 lanes 8 times,
              fold_add at msm()'s and a warm proof's widths, fold_add_tree
              at the warm proof's four tail shapes and msm()'s (one tree
-             launch each; also with the switch to four threads an add a
-             round earlier and later) and at one group of 2 and 65,536,
-             fold_horner at both Horner combines (B = 8 x 32 planes x 8
-             doublings and 254 x 1) and at the proofs' lane counts 1, 48,
-             200 and 392, fold_mixed_tiled_rows at
-             msm()'s full shape); kernel times as the median, min and max of
-             3 rounds timed in turns, plain times, and the bound (the least
-             time the card could take for the same work; beside it for
-             fe_pow, fold_horner and fold_add_tree the latency floor,
+             launch each) and at one group of 2 and 65,536, fold_horner
+             at both Horner combines (B = 8 x 32 planes x 8 doublings and
+             254 x 1) and at the proofs' lane counts 1, 48, 200 and 392,
+             fold_mixed_tiled_rows at msm()'s full shape); kernel times
+             as the median, min and max of 3 rounds timed in turns, plain
+             times, and the bound (the least time the card could take
+             for the same work at portbench/peaks.py's rates; beside it
+             for fe_pow, fold_horner and fold_add_tree the latency floor,
              their critical path of dependent squarings and products at
              the latency of one, which the mont_chain probe measures at
-             one lane).  The tree, Horner and scan entries and the
-             one-lane fe_pow are also timed against the chains of
-             launches they replace, and must not be slower;
-             msm()'s tail also in one tree launch (the route ADD_WAVE is
-             held against).
+             one lane).
   3. golden  Square k=4, Timestamp k=6, RangeHarness k=7, Identity k=4,
              Nullifier k=10 (degree 6: 8 quotient parts) and the QR
              extractor harness k=8 (pair lookups over advice tables), the
@@ -75,8 +62,8 @@ Phases, run in order, each of which raises on failure (non-zero exit):
              FE_POW_PER_PROOF fe_pow launch and at most
              GRAND_PRODUCT_LAUNCHES launches of the port's kernels in
              the grand products; no run of the plain NTT loop, the plain
-             scans, the blocked prefix-product routes or the
-             field-program interpreter on the card), peak memory; one more
+             scans or the field-program interpreter on the card), peak
+             memory; one more
              warm proof under torch.profiler (every CUDA kernel the card
              ran and the device busy share, profile_proof.profile_run);
              the warm proof's sha256, held to RSA_PROOF_SHA256; the
@@ -151,31 +138,23 @@ import subprocess
 import sys
 import time
 
+from port_circuits import (COMPOSITE_FIELDS, COMPOSITE_PROOF_SHA256,
+                           COMPOSITE_SEED, MOCK_TAMPER, RSA_PROOF_SHA256,
+                           _configured_cs, composite_circuit, golden_circuits,
+                           rsa_circuit)
+from portbench import peaks
+from portbench.peaks import MUL32_PER_MONT, MUL32_PER_SQR
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA's data sheet
-IMAD_PER_SM_CLOCK = 64        # 32-bit integer multiplies, compute cap. 9.0
 ISSUE_PER_SM_CLOCK = 4        # warp instructions: one a scheduler a clock
-# One CIOS Montgomery product (csrc/field.cuh::fe_mul): 8 rounds of 8
-# a*b and 8 m*p products of 32 x 32 -> 64 bits, each counted as two 32-bit
-# multiplies (its low and high halves), plus one 32-bit m = t0 * inv.  A
-# squaring (field.cuh::fe_sqr) takes only the 36 distinct a_i*a_j of a*a
-# (28 cross products and 8 squares) beside the 64 of the reduction.
-MUL32_PER_MONT = 8 * (8 + 8) * 2 + 8
-MUL32_PER_SQR = (36 + 64) * 2 + 8
-
-
-def _mul32(mults: int, squares: int) -> int:
-    return mults * MUL32_PER_MONT + squares * MUL32_PER_SQR
-
-
 # 32-bit multiplies per lane of the point formulas in csrc/ec_fold.cu
-MIXED_ADD = _mul32(7, 4)  # pt_add_mixed (madd-2007-bl), generic lane
-MIXED_PRE = _mul32(3, 1)  # pt_add_mixed up to the acc == +-P test
-ADD = _mul32(11, 5)       # pt_add (add-2007-bl), generic lane
-ADD_PRE = _mul32(6, 2)    # pt_add up to the u1 == u2 test
-DBL = _mul32(2, 5)        # pt_dbl (dbl-2009-l)
-POINT_BYTES = 96          # (3, 8) int32
+MIXED_ADD = peaks.mul32(7, 4)   # pt_add_mixed (madd-2007-bl), generic lane
+MIXED_PRE = peaks.mul32(3, 1)   # pt_add_mixed up to the acc == +-P test
+ADD = peaks.mul32(11, 5)        # pt_add (add-2007-bl), generic lane
+ADD_PRE = peaks.mul32(6, 2)     # pt_add up to the u1 == u2 test
+DBL = peaks.mul32(2, 5)         # pt_dbl (dbl-2009-l)
+POINT_BYTES = 96                # (3, 8) int32
 # registers a thread of any kernel may take (4 blocks of 128 threads an SM),
 # with no spills
 MAX_REGISTERS = 128
@@ -184,10 +163,8 @@ MAX_REGISTERS = 128
 ADD_KERNEL = ("fold_add", "fold_add_any", "fold_add_tree", "fold_horner")
 ADD_LAUNCHES_PER_PROOF = 100
 ADD_LAUNCHES_PER_MSM = 4
-# field_prog at the RSA part takes at most this fraction of the per-op
-# route it replaces; a warm RSA k=15 proof launches it once a quotient part
-# and mont_mul at one lane at most MONT_MUL_ONE_LANE_PER_PROOF times
-FIELD_PROG_OVER_CHAIN = 20
+# a warm RSA k=15 proof launches field_prog once a quotient part and
+# mont_mul at one lane at most MONT_MUL_ONE_LANE_PER_PROOF times
 MONT_MUL_ONE_LANE_PER_PROOF = 500
 # launches of the port's kernels allowed in TorchEngine.grand_products a
 # warm proof (three product scans, four mont_mul and one fe_pow), and the
@@ -205,48 +182,31 @@ SOURCES = {"mont_mul": "halo2tpu_torch/csrc/mont_mul.cu",
            "field_addsub": "halo2tpu_torch/csrc/field_addsub.cu",
            "field_linscan": "halo2tpu_torch/csrc/field_linscan.cu",
            "prodscan": "halo2tpu_torch/csrc/field_linscan.cu"}
-# the proofs' bytes at their seeds (RSA-SHA256 k=15, seed 4; the composite
-# k=15, seed 8), unchanged since the kernels that prove them were ported.
-# halo2tpu's HostEngine proof of the RSA circuit at the same seed has the
-# same sha256 (tests/golden/rsa_k15_host_proof.json, which
-# tests/test_torch_rsa_golden.py holds to this pin)
-RSA_PROOF_SHA256 = ("2567c205a68a04a28dbd9df0fc0d98e9"
-                    "7a3589709dfd10e98b87a76f3b2cbeb9")
-# the message rsa_circuit signs
-RSA_MESSAGE = bytes(range(256)) * 4
-COMPOSITE_PROOF_SHA256 = ("d7ee4f98ff4892a518e5757eda473410"
-                          "864e3126f606cb9a17a2c3f51361afa1")
-# phase 8's tamper of rsa_circuit()'s witness, (advice column, row, value)
-# written after synthesis: a gate cell that is also copied (a gate and
-# two copy failures) and row 0 of range_48's lookup column, far outside
-# its table (a lookup and a copy failure).  halo2tpu's MockProver gives
-# tests/golden/mock_k15_failures.json for it
-MOCK_TAMPER = ((0, 100, 7), (48, 0, 1 << 200))
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _issue_bound(sass: dict, card: "Card", lanes: int) -> dict:
+def _issue_bound(sass: dict, lanes: int) -> dict:
     """The least time fold_add's instructions take at `lanes` lanes, from
     its SASS counts (phase 1): a generic lane runs the kernel's body once
     (its untaken branches counted too; fe_sqr is inlined there) and the
     function the body calls most, fe_mul, at each of its call sites.
     issue_ms: every instruction at ISSUE_PER_SM_CLOCK warp instructions an
-    SM a clock; imad_ms: the IMAD ones at IMAD_PER_SM_CLOCK / 32.  Both at
-    the max SM clock, so both are lower bounds."""
+    SM a clock; imad_ms: the IMAD ones at peaks.IMAD_PER_SM_CLOCK / 32.
+    Both at the max SM clock, so both are lower bounds."""
     body, *called = sass["fold_add_kernel"][0]["parts"]
     mul = max(called, key=lambda p: p["body_calls"])
     per_lane = {k: body[k] + mul["body_calls"] * mul[k]
                 for k in ("instructions", "imad", "imad_wide")}
     warps = -(-lanes // 32)
-    clocks = card.sms * card.sm_hz
+    clocks = peaks.SMS * peaks.CLOCK_HZ
     return {"sass_per_lane": per_lane, "fe_mul_calls": mul["body_calls"],
             "issue_ms": warps * per_lane["instructions"]
             / (clocks * ISSUE_PER_SM_CLOCK) * 1e3,
             "imad_ms": warps * per_lane["imad"]
-            / (clocks * IMAD_PER_SM_CLOCK / 32) * 1e3}
+            / (clocks * peaks.IMAD_PER_SM_CLOCK / 32) * 1e3}
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -255,23 +215,15 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-class Card:
-    """The rates the bound is taken against: HBM bytes/s from the data
-    sheet; 32-bit multiplies/s = SMs x 64 per clock x the max SM clock."""
-
-    def __init__(self):
-        import torch
-        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
-        mhz = nvidia_smi("clocks.max.sm").splitlines()[0].split()[0]
-        self.sm_hz = float(mhz) * 1e6
-        self.mul32_per_s = self.sms * IMAD_PER_SM_CLOCK * self.sm_hz
-
-    def bound(self, nbytes: float, mul32: float) -> dict:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = mul32 / self.mul32_per_s * 1e3
-        return {"bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bound_bytes": nbytes, "bound_mul32": mul32}
+def _bound(nbytes: float, mul32s: float) -> dict:
+    """The least time the card could take for nbytes of HBM traffic and
+    mul32s 32-bit multiplies (portbench/peaks.py's rates), and which of
+    the two bounds it."""
+    t_bytes = nbytes / peaks.HBM_BYTES_PER_S * 1e3
+    t_ops = mul32s / peaks.MUL32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_mul32": mul32s}
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -343,7 +295,7 @@ def _add_pairs(La: int, dev, g):
     return p, q, 64 * (ADD_PRE + DBL) + 64 * ADD_PRE + (La - 256) * ADD
 
 
-def _mixed_case(g, table, scal, P: int, C: int, card: "Card"):
+def _mixed_case(g, table, scal, P: int, C: int):
     """(acc, bound) for a fold_mixed check of P planes over the B scalar
     vectors `scal` at width C, all npad // C rows.  Row 0 holds 512 lanes
     each whose acc equals, negates or lacks (identity) its entry; lanes
@@ -388,7 +340,7 @@ def _mixed_case(g, table, scal, P: int, C: int, card: "Card"):
     entries = torch.unique(all_digs.to(torch.int64) * npad
                            + torch.arange(npad, device=dev))
     n_entries = int((entries >= npad).sum())              # digit != 0
-    bound = card.bound(2 * L * POINT_BYTES + scal.numel() * 4
+    bound = _bound(2 * L * POINT_BYTES + scal.numel() * 4
                        + n_entries * POINT_BYTES, mul32)
     return acc, bound
 
@@ -451,7 +403,7 @@ class _Latency:
     difference over LATENCY_STEPS (the launch cancels); and the rate of
     independent products at 1,024 lanes an SM, the same way."""
 
-    def __init__(self, card: "Card", dev, g):
+    def __init__(self, dev, g):
         from halo2tpu_torch.fields.jfield import FQ
         from halo2tpu_torch.ops.cuda_field import mont_chain, mont_chain_plain
         x, y = _rand_fe(g, 2, dev), _rand_fe(g, 2, dev)
@@ -473,14 +425,14 @@ class _Latency:
                                   lo + LATENCY_STEPS) * 1e3
         self.sqr_us = per_step_ms(x[:1], y[:1], True, lo,
                                   lo + LATENCY_STEPS) * 1e3
-        self.rate_lanes = card.sms * 1024
+        self.rate_lanes = peaks.SMS * 1024
         xs, ys = _rand_fe(g, self.rate_lanes, dev), _rand_fe(
             g, self.rate_lanes, dev)
         self.rate_per_s = self.rate_lanes / (
             per_step_ms(xs, ys, False, 200, 1000) / 1e3)
 
     def floor(self, bound: dict, chain: dict) -> dict:
-        """bound (Card.bound's: bytes or operations) with the chain's
+        """bound (_bound()'s: bytes or operations) with the chain's
         latency floor beside it: its squarings and products in sequence."""
         ms = (chain["squarings"] * self.sqr_us
               + chain["products"] * self.mul_us) / 1e3
@@ -492,7 +444,7 @@ class _Latency:
                 "products_per_s": self.rate_per_s}
 
 
-def _rows_case(g, B: int, C: int, card: "Card", dev, n: int = 1 << 15):
+def _rows_case(g, B: int, C: int, dev, n: int = 1 << 15):
     """(acc, points, scalars, bound, extra) for a fold_mixed_tiled_rows
     check over n bases (msm()'s 2^15 by default; base n - 1 the identity), B
     random scalar vectors (bits 252-253 clear), 254 * B * C lanes.  512
@@ -535,218 +487,21 @@ def _rows_case(g, B: int, C: int, card: "Card", dev, n: int = 1 << 15):
     later = int((count[sel[1]] > 1).sum())
     mul32 = ((adds - 1536 - later) * MIXED_ADD + 512 * (MIXED_PRE + DBL)
              + 512 * MIXED_PRE)
-    bound = card.bound(2 * L * POINT_BYTES + scalars.numel() * 4
+    bound = _bound(2 * L * POINT_BYTES + scalars.numel() * 4
                        + n * POINT_BYTES, mul32)
     warp_adds = 32 * int(count.reshape(-1, 32).max(dim=1).values.sum())
     return acc, points, scalars, bound, {"adds": adds, "warp_adds": warp_adds}
 
 
-def _chain_case(cases: dict, name: str, fn, want, iters: int) -> None:
-    """Queue fn(), the chain of launches an entry replaces, for the timing
-    rounds after holding its result bitwise to the entry's (`want`)."""
-    err = _max_abs_err(fn(), want)
-    if err != 0:
-        raise AssertionError(f"{name}: the chain != the entry (max |diff| "
-                             f"{err})")
-    cases[name] = (fn, iters)
-
-
-# -- the per-op route a quotient part took before field_prog ----------------
-# (the chain of launches that phase 2 holds the field_prog kernel against:
-# each gate poly, rule and compression one field op a launch, then the
-# engine's weighted y-reduction and the 1 / Z_H scale)
-
-def _op_l0_one_minus_z(jf, FR, l0, z):
-    return jf.mont_mul(FR, l0, jf.sub(FR, jf.one_like(FR, z), z))
-
-
-def _op_llast_zz(jf, FR, l_last, z):
-    return jf.mont_mul(FR, l_last, jf.sub(FR, jf.mont_mul(FR, z, z), z))
-
-
-def _op_perm_product(jf, FR, z, l_active, cvals, sigmas, bds, beta, gamma,
-                     wq):
-    import torch
-    lhs, rhs = torch.roll(z, -1, 0), z
-    for c, s, bd in zip(cvals, sigmas, bds):
-        t1 = jf.add(FR, c, jf.mont_mul(FR, s, beta))
-        lhs = jf.mont_mul(FR, lhs, jf.add(FR, t1, gamma))
-        t2 = jf.add(FR, c, jf.mont_mul(FR, wq, bd))
-        rhs = jf.mont_mul(FR, rhs, jf.add(FR, t2, gamma))
-    return jf.mont_mul(FR, jf.sub(FR, lhs, rhs), l_active)
-
-
-def _op_lookup_rules(jf, FR, zc, ac, sc, comp_in, comp_tb, l0, l_last,
-                     l_active, beta, gamma):
-    import torch
-    v1 = _op_l0_one_minus_z(jf, FR, l0, zc)
-    v2 = _op_llast_zz(jf, FR, l_last, zc)
-    z_next, a_prev = torch.roll(zc, -1, 0), torch.roll(ac, 1, 0)
-    lhs = jf.mont_mul(FR, z_next, jf.mont_mul(
-        FR, jf.add(FR, ac, beta), jf.add(FR, sc, gamma)))
-    rhs = jf.mont_mul(FR, zc, jf.mont_mul(
-        FR, jf.add(FR, comp_in, beta), jf.add(FR, comp_tb, gamma)))
-    v3 = jf.mont_mul(FR, jf.sub(FR, lhs, rhs), l_active)
-    a_minus_s = jf.sub(FR, ac, sc)
-    v4 = jf.mont_mul(FR, l0, a_minus_s)
-    v5 = jf.mont_mul(FR, jf.mont_mul(FR, a_minus_s, jf.sub(FR, ac, a_prev)),
-                     l_active)
-    return v1, v2, v3, v4, v5
-
-
-def _op_engine(device):
-    """The TorchEngine methods the per-op route calls, with no SRS."""
-    from halo2tpu_torch.plonk.engine import TorchEngine
-
-    class OpEngine:
-        _encode = TorchEngine._encode
-        _enc_scalar = TorchEngine._enc_scalar
-        _wsum = TorchEngine._wsum
-        weighted_sum = TorchEngine.weighted_sum
-        scale = TorchEngine.scale
-        add = TorchEngine.add
-
-        def __init__(self):
-            self.device = device
-            self._scalar_cache = {}
-
-    return OpEngine()
-
-
-def per_op_part(eng, cs, n: int, leaf, ch: dict, zh_inv: int):
-    """A quotient part's hv / Z_H the way the prover computed it before
-    field_prog: leaf(key) gives the part's vectors under the part
-    program's leaf keys (plonk/quotient.py)."""
-    import torch
-    from halo2tpu_torch.fields import jfield as jf
-    from halo2tpu_torch.fields.bn254 import FR_DELTA, R
-    from halo2tpu_torch.fields.jfield import FR
-    from halo2tpu_torch.plonk.quotient import _perm_layout, _val_fn_for
-
-    def value(expr):
-        fn, leaves = _val_fn_for(expr)
-        return fn(*[eng._enc_scalar(v) if kind == "const" else leaf((kind, v))
-                    for kind, v in leaves])
-
-    def compress(exprs):
-        vals = [value(e) for e in exprs]
-        k = len(vals)
-        return vals[0] if k == 1 else eng.weighted_sum(
-            vals, [pow(ch["theta"], k - 1 - i, R) for i in range(k)])
-
-    l0, l_last, l_active = (leaf((k,)) for k in ("l0", "l_last", "l_active"))
-    beta_e, gamma_e = eng._enc_scalar(ch["beta"]), eng._enc_scalar(ch["gamma"])
-    values = [value(poly) for gate in cs.gates for poly in gate.polys]
-    chunks = _perm_layout(cs)
-    if chunks:
-        b = cs.blinding_factors()
-        perm_cols = cs.permutation_columns
-        zs = [leaf(("z", j)) for j in range(len(chunks))]
-        values.append(_op_l0_one_minus_z(jf, FR, l0, zs[0]))
-        values.append(_op_llast_zz(jf, FR, l_last, zs[-1]))
-        for j in range(1, len(chunks)):
-            prev = torch.roll(zs[j - 1], -((-(b + 1)) % n), 0)
-            values.append(jf.mont_mul(FR, l0, jf.sub(FR, zs[j], prev)))
-        gidx = 0
-        for j, chunk in enumerate(chunks):
-            bds = [eng._enc_scalar(ch["beta"] * pow(FR_DELTA, gidx + i, R) % R)
-                   for i in range(len(chunk))]
-            values.append(_op_perm_product(
-                jf, FR, zs[j], l_active, [leaf((c.kind, c.index))
-                                          for c in chunk],
-                [leaf(("sigma", perm_cols.index(c))) for c in chunk], bds,
-                beta_e, gamma_e, leaf(("wq",))))
-            gidx += len(chunk)
-    for li, lk in enumerate(cs.lookups):
-        values.extend(_op_lookup_rules(
-            jf, FR, *[leaf(("lookup", li, k)) for k in range(3)],
-            compress([p[0] for p in lk.pairs]),
-            compress([p[1] for p in lk.pairs]), l0, l_last, l_active, beta_e,
-            gamma_e))
-    N = len(values)
-    hv = eng.weighted_sum(values, [pow(ch["y"], N - 1 - i, R)
-                                   for i in range(N)])
-    return eng.scale(hv, zh_inv)
-
-
-# -- the chains of launches the scan and the weighted sum replace ------------
-# (the prover's routes before field_linscan and the sum program: one add
-# launch a scan or tree-sum round, one mont_mul launch a power-vector round)
-
-def _chain_tree_sum(arr, dim: int = 0):
-    """Sum mod r over `dim` by halving rounds of add launches."""
-    import torch
-    from halo2tpu_torch.fields import jfield as jf
-    while arr.shape[dim] > 1:
-        half = arr.shape[dim] // 2
-        head = jf.add(jf.FR, arr.narrow(dim, 0, half),
-                      arr.narrow(dim, half, half))
-        arr = head if 2 * half == arr.shape[dim] else torch.cat(
-            [head, arr.narrow(dim, 2 * half, arr.shape[dim] - 2 * half)],
-            dim)
-    return arr.select(dim, 0)
-
-
-def _chain_wsum(stacked, coefs):
-    """sum_i coefs[i] stacked[i]: one product launch and a tree sum."""
-    from halo2tpu_torch.fields import jfield as jf
-    return _chain_tree_sum(jf.mont_mul(jf.FR, stacked, coefs[:, None]))
-
-
-def _chain_scan(v, reverse: bool = False):
-    """The prefix (suffix) sum along axis 0 in Hillis-Steele rounds, one
-    add launch and a cat a round (and a flip each side for a suffix)."""
-    import torch
-    from halo2tpu_torch.fields import jfield as jf
-    x = torch.flip(v, [0]) if reverse else v
-    n, shift = x.shape[0], 1
-    while shift < n:
-        x = torch.cat([x[:shift], jf.add(jf.FR, x[shift:], x[:n - shift])])
-        shift *= 2
-    return torch.flip(x, [0]) if reverse else x
-
-
-def _chain_div_linear(vec, a: int):
-    """vec(X) / (X - a): power vectors of a and 1/a (doubling rounds of
-    mont_mul) around a suffix sum."""
-    import torch
-    from halo2tpu_torch.fields import jfield as jf
-    from halo2tpu_torch.fields.bn254 import R
-    from halo2tpu_torch.plonk.engine import _powers
-    a_e, ainv_e = jf.FR.encode([a, pow(a, -1, R)], vec.device)
-    n = vec.shape[0]
-    S = _chain_scan(jf.mont_mul(jf.FR, vec, _powers(a_e, n)), reverse=True)
-    out = jf.mont_mul(jf.FR, torch.cat([S[1:], torch.zeros_like(S[:1])]),
-                      _powers(ainv_e, n))
-    return jf.mont_mul(jf.FR, out, ainv_e)
-
-
-def _chain_eval(stacked, x: int):
-    """(P, n, 8) polys at x: a power vector, one product, a tree sum."""
-    from halo2tpu_torch.fields import jfield as jf
-    from halo2tpu_torch.plonk.engine import _powers
-    pows = _powers(jf.FR.encode([x], stacked.device)[0], stacked.shape[1])
-    return _chain_tree_sum(jf.mont_mul(jf.FR, stacked, pows), 1)
-
-
-def _configured_cs(circuit):
-    """circuit's ConstraintSystem (configure only)."""
-    from halo2tpu_torch.plonk.circuit import ConstraintSystem
-    cs = ConstraintSystem()
-    circuit.configure(cs)
-    return cs
-
-
-def _field_prog_case(circuit, g, n: int, card: "Card", dev):
+def _field_prog_case(circuit, g, n: int, dev):
     """A circuit's part program at n rows on random leaves (strided column
     views of one stack, as coeff_to_part_stack returns them) and random
-    challenges: (program, leaves by key, consts, ch, zh_inv, cs, bound)."""
+    challenges: (program, leaves by key, consts, bound)."""
     import torch
     from halo2tpu_torch.fields.bn254 import R
     from halo2tpu_torch.fields.jfield import FR
     from halo2tpu_torch.plonk.quotient import const_value, part_program
-    cs = _configured_cs(circuit)
-    prog = part_program(cs, n)
+    prog = part_program(_configured_cs(circuit), n)
     m = len(prog.leaf_keys)
     stack = _rand_fe(g, n * m, dev).reshape(n, m, 8)
     by_key = dict(zip(prog.leaf_keys, stack.unbind(1)))
@@ -754,16 +509,14 @@ def _field_prog_case(circuit, g, n: int, card: "Card", dev):
     ch_vals = [sum(int(w) << (62 * i) for i, w in enumerate(row)) % R
                for row in vals.tolist()]
     ch = dict(zip(("theta", "beta", "gamma", "y"), ch_vals))
-    zh_inv = ch_vals[4]
-    consts = FR.encode([const_value(k, ch, zh_inv) for k in prog.const_keys],
-                       dev)
+    consts = FR.encode([const_value(k, ch, ch_vals[4])
+                        for k in prog.const_keys], dev)
     ops = prog.op_counts()
     products = ops["MUL"] + ops["HORNER"]
-    bound = card.bound((m + 1) * n * 32 + prog.code.nbytes
-                       + consts.numel() * 4,
-                       n * (products * MUL32_PER_MONT
-                            + ops["SQR"] * MUL32_PER_SQR))
-    return prog, by_key, consts, ch, zh_inv, cs, bound
+    bound = _bound((m + 1) * n * 32 + prog.code.nbytes + consts.numel() * 4,
+                   n * (products * MUL32_PER_MONT
+                        + ops["SQR"] * MUL32_PER_SQR))
+    return prog, by_key, consts, bound
 
 
 def _ntt_entries(tntt, plan, a, pre, post):
@@ -788,19 +541,17 @@ def _occupancy(registers: int, smem: int, threads: int) -> int:
     return min(65536 // regs, 233472 // (smem + 1024), 32, 2048 // threads)
 
 
-def phase_kernels(report: dict, card: Card) -> None:
+def phase_kernels(report: dict) -> None:
     import torch
     from halo2tpu_torch import _build
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.fields.bn254 import Q, R
-    from halo2tpu_torch.curves.jpoint import identity_points
     from halo2tpu_torch.fields.bn254 import fr_root_of_unity
     from halo2tpu_torch.ops import cuda_ec, cuda_field
     from halo2tpu_torch.ops import ntt as tntt
     from halo2tpu_torch.ops.field_prog import (field_prog, field_prog_plain,
                                                groups_for, sum_program)
     from halo2tpu_torch.ops.msm import SCALAR_BITS, TABLE_W
-    from halo2tpu_torch.plonk.quotient import const_value, part_program
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(7)
@@ -848,12 +599,12 @@ def phase_kernels(report: dict, card: Card) -> None:
         check("mont_mul", f"mont_mul {fname}",
               lambda s=spec, x=a, y=b: cuda_field.mont_mul(s, x, y),
               lambda s=spec, x=a, y=b: cuda_field.mont_mul_plain(s, x, y),
-              1000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
+              1000, _bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
               lanes=lanes)
         check("mont_mul", f"mont_mul {fname} square",
               lambda s=spec, x=a: cuda_field.mont_mul(s, x, x),
               lambda s=spec, x=a: cuda_field.mont_mul_plain(s, x, x),
-              1000, card.bound(2 * lanes * 32, lanes * MUL32_PER_SQR),
+              1000, _bound(2 * lanes * 32, lanes * MUL32_PER_SQR),
               lanes=lanes)
     # and at the two lane counts a warm proof launches most (phase 4's
     # histogram: 32,768 lanes and one lane), launched back to back through
@@ -863,34 +614,23 @@ def phase_kernels(report: dict, card: Card) -> None:
         check("mont_mul", f"mont_mul fr L{lanes}",
               lambda x=a, y=b: cuda_field.mont_mul(jfield.FR, x, y),
               lambda x=a, y=b: cuda_field.mont_mul_plain(jfield.FR, x, y),
-              2000, card.bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
+              2000, _bound(3 * lanes * 32, lanes * MUL32_PER_MONT),
               lanes=lanes)
 
-    lat = _Latency(card, dev, g)
+    lat = _Latency(dev, g)
     log(f"kernels: one dependent Montgomery product takes "
         f"{lat.mul_us:.4f} us, a squaring {lat.sqr_us:.4f} us (one lane of "
         f"mont_chain, {LATENCY_STEPS} steps beyond the first "
         f"{LATENCY_STEPS // 4}); independent products "
         f"{lat.rate_per_s:.4g}/s at {lat.rate_lanes} lanes, "
-        f"{lat.rate_per_s * MUL32_PER_MONT / card.mul32_per_s:.3f} of the "
+        f"{lat.rate_per_s * MUL32_PER_MONT / peaks.MUL32_PER_S:.3f} of the "
         "multiply bound")
 
     # fe_pow (cuda_field.mont_pow), Fr and Fq: exponents 0, 1, 2 and p - 2
     # at 1, 16, 80 and 4,097 lanes (the edge values 0, 1, p - 1 and R mod p
     # first), bitwise against the plain version; timed with p - 2 (a proof's
     # inversions) at 1, 80 (the grand products' one inversion of an RSA
-    # proof) and 4,097 lanes, at one lane also against the chain it
-    # replaces (one mont_mul launch a squaring or product)
-    def chain_pow(spec, a, e):
-        result, base = spec.const("one_mont", dev).expand(a.shape), a
-        while e:
-            if e & 1:
-                result = cuda_field.mont_mul(spec, result, base)
-            e >>= 1
-            if e:
-                base = cuda_field.mont_mul(spec, base, base)
-        return result
-
+    # proof) and 4,097 lanes
     for spec, p, fname in ((jfield.FR, R, "fr"), (jfield.FQ, Q, "fq")):
         edge = torch.from_numpy(jfield.ints_to_limbs(
             [0, 1, p - 1, (1 << 256) % p])).to(dev)
@@ -907,43 +647,32 @@ def phase_kernels(report: dict, card: Card) -> None:
         sq, mul = e.bit_length() - 1, bin(e).count("1")
         for lanes in (1, 80, 4097):
             x = _rand_fe(g, lanes, dev)
-            name = f"fe_pow {fname} L{lanes} p-2"
-            extra = ({"chain_launches": sq + mul,
-                      "chain_case": f"{name} chain"} if lanes == 1 else {})
-            check("fe_pow", name, lambda s=spec, x=x, e=e:
-                  cuda_field.mont_pow(s, x, e),
+            check("fe_pow", f"fe_pow {fname} L{lanes} p-2",
+                  lambda s=spec, x=x, e=e: cuda_field.mont_pow(s, x, e),
                   lambda s=spec, x=x, e=e: cuda_field.mont_pow_plain(s, x, e),
                   200 if lanes < 4097 else 50,
-                  lat.floor(card.bound(64 * lanes, lanes * (
+                  lat.floor(_bound(64 * lanes, lanes * (
                       sq * MUL32_PER_SQR + mul * MUL32_PER_MONT)),
                             {"squarings": sq, "products": 1}),
                   plain_runs=3 if lanes == 1 else 1, lanes=lanes,
-                  squarings=sq, products=mul, **extra)
-            if lanes == 1:
-                _chain_case(cases, f"{name} chain",
-                            lambda s=spec, x=x, e=e: chain_pow(s, x, e),
-                            cuda_field.mont_pow(spec, x, e), 20)
+                  squarings=sq, products=mul)
 
     # field_prog: the RSA-SHA256 and the composite part programs at n =
     # 2^15 rows (a k=15 proof's part), split into groups_for(n) sub-programs
-    # as the prover compiles them, bitwise against the plain interpreter
-    # and against the per-op route it replaces, timed against that route,
-    # the one-program kernel (G = 1, one warp a row as before the split)
-    # and the bound; the loads the program makes beside the bytes bound
+    # as the prover compiles them, bitwise against the plain interpreter,
+    # timed against the bound; the loads the program makes beside the bytes
+    # bound
     n_q = 1 << 15
     res = _build.resources.get("field_prog_kernel", {})
-    op_eng = _op_engine(dev)
     for case, circuit in (("rsa", rsa_circuit()),
                           ("composite", composite_circuit())):
-        prog, by_key, consts, ch, zh_inv, cs, bound = _field_prog_case(
-            circuit, g, n_q, card, dev)
+        prog, by_key, consts, bound = _field_prog_case(circuit, g, n_q, dev)
         leaves = [by_key[k] for k in prog.leaf_keys]
         G = prog.groups
         smem = G * prog.slots * 8 * 32 * 4
         blocks = _occupancy(res.get("registers", 255), smem, 32 * G)
         grid = -(-n_q // 32)
-        name = f"field_prog {case} part"
-        check("field_prog", name,
+        check("field_prog", f"field_prog {case} part",
               lambda p=prog, x=leaves, c=consts: field_prog(
                   jfield.FR, p, x, c, n_q),
               lambda p=prog, x=leaves, c=consts: field_prog_plain(
@@ -954,37 +683,18 @@ def phase_kernels(report: dict, card: Card) -> None:
               load_bytes=prog.op_counts()["LOAD"] * n_q * 32,
               threads_per_block=32 * G, shared_bytes_per_block=smem,
               blocks_per_sm=blocks, grid_blocks=grid,
-              warps_per_sm=min(grid, blocks * card.sms) * G / card.sms,
-              chain_case=f"{name} chain", alt_case=f"{name} one program",
-              alt_key="one_program")
-        _chain_case(cases, f"{name} chain",
-                    lambda c=cs, k=by_key, h=ch, z=zh_inv: per_op_part(
-                        op_eng, c, n_q, k.__getitem__, h, z),
-                    field_prog(jfield.FR, prog, leaves, consts, n_q), 2)
-        one = part_program(cs, n_q, groups=1)
-        one_consts = jfield.FR.encode([const_value(k, ch, zh_inv)
-                                       for k in one.const_keys], dev)
-        one_leaves = [by_key[k] for k in one.leaf_keys]
-        _chain_case(cases, f"{name} one program",
-                    lambda p=one, x=one_leaves, c=one_consts: field_prog(
-                        jfield.FR, p, x, c, n_q),
-                    field_prog(jfield.FR, prog, leaves, consts, n_q), 10)
+              warps_per_sm=min(grid, blocks * peaks.SMS) * G / peaks.SMS)
 
     # the engine's weighted sum as a field program (sum_program) over 64
-    # vectors of 2^15 rows, against the chain it replaces (one mont_mul
-    # launch, then halving rounds of add launches)
+    # vectors of 2^15 rows
     vecs = [_rand_fe(g, n_q, dev) for _ in range(64)]
     coefs = _rand_fe(g, 64, dev)
     sprog = sum_program(64, groups_for(n_q))
     check("field_prog", "field_prog sum 64 x 32768",
           lambda: field_prog(jfield.FR, sprog, vecs, coefs, n_q),
           lambda: field_prog_plain(jfield.FR, sprog, vecs, coefs, n_q), 50,
-          card.bound(65 * n_q * 32 + 64 * 32, 64 * n_q * MUL32_PER_MONT),
-          rows=n_q, groups=sprog.groups, terms=64,
-          chain_case="field_prog sum 64 x 32768 chain")
-    _chain_case(cases, "field_prog sum 64 x 32768 chain",
-                lambda: _chain_wsum(torch.stack(vecs), coefs),
-                field_prog(jfield.FR, sprog, vecs, coefs, n_q), 50)
+          _bound(65 * n_q * 32 + 64 * 32, 64 * n_q * MUL32_PER_MONT),
+          rows=n_q, groups=sprog.groups, terms=64)
 
     # the NTT (ops/ntt.py, csrc/ntt.cu): forward, inverse, coset (the
     # quotient's pre-scale) and h-chunk (inverse and post-scale) entries,
@@ -1018,7 +728,7 @@ def phase_kernels(report: dict, card: Card) -> None:
             passes = tntt.pass_shapes(k, cols)
             check("ntt", f"ntt {entry} n{n} C{cols}", fn, plain,
                   20 if n * cols >= 1 << 19 else 500,
-                  card.bound(nbytes, products * MUL32_PER_MONT), plain_runs=1,
+                  _bound(nbytes, products * MUL32_PER_MONT), plain_runs=1,
                   n=n, C=cols, entry=entry, passes=len(passes),
                   reg_bits=[tntt.reg_bits(p[0], p[1]) for p in passes])
             ntt_checked += 1
@@ -1065,7 +775,7 @@ def phase_kernels(report: dict, card: Card) -> None:
               f"field_addsub {op} L{lanes}" + (" + (n, 1)" if bcast else ""),
               lambda f=fn, a=args: f(jfield.FR, *a),
               lambda f=plain, a=args: f(jfield.FR, *a), iters,
-              card.bound(sum(a.numel() for a in args) * 4 + lanes * 32, 0),
+              _bound(sum(a.numel() for a in args) * 4 + lanes * 32, 0),
               lanes=lanes, op=op, broadcast=bcast)
 
     # the scans (cuda_field.linscan and prodscan, csrc/field_linscan.cu),
@@ -1076,8 +786,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     # path's, first; an evaluation group of 16 polys of 2^15 rows; the
     # suffix and prefix sums at 2^15; the grand products' scans over 80
     # columns of 2^15 rows; a total and a full scan at 2^20), against its
-    # bound and the chain of launches each replaces (the engine's routes
-    # before this kernel: must not be slower)
+    # bound
     a_r = int(torch.randint(1, 2**62, (1,), generator=g)) ** 4 % R
 
     def scan_of(kind, a):
@@ -1090,16 +799,6 @@ def phase_kernels(report: dict, card: Card) -> None:
                                                       t),
                 lambda x, r, e, t: cuda_field.linscan_plain(jfield.FR, x, a,
                                                             r, e, t))
-
-    def at_run(run, f, *args):
-        """f(*args) with the product scan's kernel at runs of `run` (its
-        rule's runs swapped out)."""
-        saved = cuda_field.STREAM_RUN_SHORT, cuda_field.STREAM_RUN_LONG
-        cuda_field.STREAM_RUN_SHORT = cuda_field.STREAM_RUN_LONG = run
-        try:
-            return f(*args)
-        finally:
-            cuda_field.STREAM_RUN_SHORT, cuda_field.STREAM_RUN_LONG = saved
 
     scan_kinds = (("one", 1), ("a", a_r), ("prod", 1))
     for n in (1, 3, 1000, 1 << 20):
@@ -1152,41 +851,28 @@ def phase_kernels(report: dict, card: Card) -> None:
     big = _rand_fe(g, 1 << 20, dev)
     gp = _rand_fe(g, 80 * n_q, dev).reshape(80, n_q, 8)
 
-    def chain_prefix_prod(x):
-        """The grand products' prefix-product route before the product
-        scan: jfield._prefix_prod_plain over (rows, columns), blocked
-        mont_mul launches."""
-        return jfield._prefix_prod_plain(jfield.FR, x.transpose(0, 1)
-                                         ).transpose(0, 1)
-
     # keygen's window tables (ops/msm.py::precompute_window_table): one
     # batch inversion over 255 x 16 (k = 4), 255 x 1024 (k = 10) and 128 x
     # 2^15 (k = 15) Fq lanes, whose exclusive prefix product is timed here
     tables = {m: _rand_fe(g, m, dev) for m in (255 * 16, 255 * 1024, 1 << 22)}
     scan_cases = (
-        ("div_linear L32768", v, "a", a_r, True, True, False,
-         lambda: _chain_div_linear(v, a_r)),
-        ("eval 16 x 32768", polys, "a", a_r, True, False, True,
-         lambda: _chain_eval(polys, a_r)),
-        ("suffix sum L32768", v, "one", 1, True, False, False,
-         lambda: _chain_scan(v, reverse=True)),
-        ("prefix sum L32768", v, "one", 1, False, False, False,
-         lambda: _chain_scan(v)),
-        ("prodscan 80 x 32768", gp, "prod", 1, False, False, False,
-         lambda: chain_prefix_prod(gp)),
+        ("div_linear L32768", v, "a", a_r, True, True, False),
+        ("eval 16 x 32768", polys, "a", a_r, True, False, True),
+        ("suffix sum L32768", v, "one", 1, True, False, False),
+        ("prefix sum L32768", v, "one", 1, False, False, False),
+        ("prodscan 80 x 32768", gp, "prod", 1, False, False, False),
         ("prodscan exclusive reverse 80 x 32768", gp, "prod", 1, True, True,
-         False, None),
+         False),
         *((f"prodscan fq exclusive L{m}", t, "prod fq", 1, False, True,
-           False, None) for m, t in tables.items()),
-        ("total L1048576", big, "a", a_r, False, False, True, None),
-        ("full L1048576", big, "a", a_r, False, False, False, None))
-    for label, x, kind, a, reverse, exclusive, totals, chain in scan_cases:
+           False) for m, t in tables.items()),
+        ("total L1048576", big, "a", a_r, False, False, True),
+        ("full L1048576", big, "a", a_r, False, False, False))
+    for label, x, kind, a, reverse, exclusive, totals in scan_cases:
         elems = x.numel() // 8
         cols = x.shape[0] if x.dim() == 3 else 1
         out_bytes = cols * 32 if totals else elems * 32
         kernel = "prodscan" if kind.startswith("prod") else "field_linscan"
         name = label if kernel == "prodscan" else f"field_linscan {label}"
-        extra = {"chain_case": f"{name} chain"} if chain else {}
         if kernel == "prodscan":
             run, nb = cuda_field.stream_shapes(elems // cols, cols,
                                                cuda_field._stream_wave(dev))
@@ -1205,32 +891,11 @@ def phase_kernels(report: dict, card: Card) -> None:
               lambda x=x, f=plain, r=reverse, e=exclusive, t=totals:
                   f(x, r, e, t),
               200 if elems < 1 << 20 else 20,
-              card.bound(elems * 32 + out_bytes,
-                         0 if kind == "one" else elems * MUL32_PER_MONT),
+              _bound(elems * 32 + out_bytes,
+                     0 if kind == "one" else elems * MUL32_PER_MONT),
               plain_runs=1, rows=elems // cols, columns=cols, kind=kind,
               reverse=reverse, exclusive=exclusive, totals=totals, run=run,
-              blocks_per_column=nb, blocks=nb * cols, launches_per_call=1,
-              **extra)
-        if chain:
-            _chain_case(cases, f"{name} chain", chain,
-                        fn(x, reverse, exclusive, totals), 20)
-        if kernel != "prodscan":
-            continue
-        # the product scans also at the runs the rule did not pick: 4 (its
-        # short runs, for grids that fit one wave), 16, 32 (its long ones)
-        # and 64 at 80 x 2^15, 4 or 32 at keygen's single columns
-        alts = ((4, 16, 32, 64) if cols > 1 else (4, 32))
-        checks[kernel][-1]["alts"] = {}
-        for k in alts:
-            if k == run:
-                continue
-            case = f"{name} run {k}"
-            checks[kernel][-1]["alts"][f"run_{k}"] = case
-            _chain_case(cases, case,
-                        lambda x=x, f=fn, r=reverse, e=exclusive, t=totals,
-                        k=k: at_run(k, f, x, r, e, t),
-                        fn(x, reverse, exclusive, totals),
-                        200 if elems < 1 << 20 else 20)
+              blocks_per_column=nb, blocks=nb * cols, launches_per_call=1)
     del tables
 
     # fold_mixed at the widths ops/msm.py::fold_width gives a k=15 commit
@@ -1250,7 +915,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     for P, B, C, iters in ((32, 8, 256, 20), (8, 8, 1024, 50),
                            (32, 1, 2048, 100)):
         sc = scal[:B]
-        acc, bound = _mixed_case(g, table, sc, P, C, card)
+        acc, bound = _mixed_case(g, table, sc, P, C)
         rows = npad // C
         check("fold_mixed", f"fold_mixed P{P} B{B} C{C}",
               lambda a=acc, s=sc, P=P, C=C, rows=rows: cuda_ec.fold_mixed(
@@ -1287,7 +952,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     check("fold_mixed_tiled", "fold_mixed_tiled",
           lambda: cuda_ec.fold_mixed_tiled(acc_t, pts_c, bits),
           lambda: cuda_ec.fold_mixed_tiled_plain(acc_t, pts_c, bits), 200,
-          card.bound(2 * Lt * POINT_BYTES + Lt + C * POINT_BYTES, mul32),
+          _bound(2 * Lt * POINT_BYTES + Lt + C * POINT_BYTES, mul32),
           plain_runs=1, lanes=Lt, C=C,
           masked=Lt - int((bits != 0).sum()), adds=live_n)
 
@@ -1298,7 +963,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     pa, qa, mul32 = _add_pairs(La, dev, g)
     check("fold_add", "fold_add", lambda: cuda_ec.fold_add(pa, qa),
           lambda: cuda_ec.fold_add_plain(pa, qa), 200,
-          card.bound(3 * La * POINT_BYTES, mul32), lanes=La)
+          _bound(3 * La * POINT_BYTES, mul32), lanes=La)
     try:
         cuda_ec.fold_add(pa[:La - 1], qa[:La - 1])
     except ValueError:
@@ -1310,7 +975,7 @@ def phase_kernels(report: dict, card: Card) -> None:
     pw, qw, mul32 = _add_pairs(32768, dev, g)
     check("fold_add", "fold_add L32768", lambda: cuda_ec.fold_add(pw, qw),
           lambda: cuda_ec.fold_add_plain(pw, qw), 500,
-          card.bound(3 * 32768 * POINT_BYTES, mul32), lanes=32768)
+          _bound(3 * 32768 * POINT_BYTES, mul32), lanes=32768)
 
     # fold_add_any at an unaligned lane count, same special lanes;
     # fold_dbl_any at a window-table-build width with times=1 (no branch:
@@ -1321,40 +986,22 @@ def phase_kernels(report: dict, card: Card) -> None:
     check("fold_add_any", "fold_add_any",
           lambda: cuda_ec.fold_add_any(pb, qb),
           lambda: cuda_ec.fold_add_any_plain(pb, qb), 500,
-          card.bound(3 * Lb * POINT_BYTES, mul32), lanes=Lb)
+          _bound(3 * Lb * POINT_BYTES, mul32), lanes=Lb)
     for Ld, times, iters in ((1 << 20, 1, 200), (16, 8, 2000)):
         pd = _rand_points(g, Ld, dev)
         pd[:max(1, Ld // 1024), 2] = 0
         check("fold_dbl_any", f"fold_dbl_any L{Ld} x{times}",
               lambda p=pd, t=times: cuda_ec.fold_dbl_any(p, times=t),
               lambda p=pd, t=times: cuda_ec.fold_dbl_any_plain(p, t), iters,
-              card.bound(2 * Ld * POINT_BYTES, Ld * times * DBL),
+              _bound(2 * Ld * POINT_BYTES, Ld * times * DBL),
               lanes=Ld, times=times)
 
     # fold_add_tree at the warm proof's tail shapes (G groups x width: the
     # 65,536-lane fold_mixed launches at C = 256, 1024 and 2048, and the
     # 98,304-lane one) and msm()'s (2032 x 256: two lanewise rounds, then
-    # one tree launch), each one launch of the tree kernel, also timed
-    # against the chain of lanewise add launches it replaces and with the
-    # switch to four threads an add a round earlier (a slot limit of two
-    # waves) and a round later (half a wave); beside its bound the latency
-    # floor of its rounds (tree_add4's critical path each); and bitwise at
-    # one group of 2 and of 65,536 lanes
-    def chain_tree(acc, G, W):
-        while W > 1:
-            a4 = acc.reshape(G, W, 3, 8)
-            acc = cuda_ec.fold_add_any(a4[:, :W // 2].reshape(-1, 3, 8),
-                                       a4[:, W // 2:].reshape(-1, 3, 8))
-            W //= 2
-        return acc
-
-    def tree_at(acc, G, W, limit):
-        cuda_ec.TREE_SLOT_LIMIT = limit
-        try:
-            return cuda_ec.fold_add_tree(acc, G, W)
-        finally:
-            cuda_ec.TREE_SLOT_LIMIT = None
-
+    # one tree launch), each one launch of the tree kernel; beside its
+    # bound the latency floor of its rounds (tree_add4's critical path
+    # each); and bitwise at one group of 2 and of 65,536 lanes
     wave = cuda_ec.tree_slot_limit(dev)
     for G, W in ((1, 2), (1, 1 << 16)):
         acc, _ = _tree_case(g, G, W, dev) if W > 8 else (
@@ -1369,72 +1016,32 @@ def phase_kernels(report: dict, card: Card) -> None:
         acc, mul32 = _tree_case(g, G, W, dev)
         name = f"fold_add_tree {G}x{W}"
         slots = cuda_ec.tree_round_slots(G, W, wave)
-        alts = {"slot_switch_a_round_earlier": f"{name} limit x2",
-                "slot_switch_a_round_later": f"{name} limit x0.5"}
         check("fold_add_tree", name,
               lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree(a, G, W),
               lambda a=acc, G=G, W=W: cuda_ec.fold_add_tree_plain(a, G, W),
-              iters, lat.floor(card.bound((G * W + G) * POINT_BYTES, mul32),
+              iters, lat.floor(_bound((G * W + G) * POINT_BYTES, mul32),
                                _tree_chain(W)),
-              plain_runs=1, groups=G, width=W, chain_case=f"{name} chain",
-              slot_limit=wave, one_thread_rounds=slots.count(False),
-              slot_rounds=slots.count(True), alts=alts)
-        _chain_case(cases, f"{name} chain",
-                    lambda a=acc, G=G, W=W: chain_tree(a, G, W),
-                    cuda_ec.fold_add_tree(acc, G, W), iters)
-        for factor, case in ((2, alts["slot_switch_a_round_earlier"]),
-                             (0.5, alts["slot_switch_a_round_later"])):
-            _chain_case(cases, case,
-                        lambda a=acc, G=G, W=W, lim=int(wave * factor):
-                            tree_at(a, G, W, lim),
-                        cuda_ec.fold_add_tree(acc, G, W), iters)
-
-    # msm()'s tail also with every round in the tree kernel (one launch, no
-    # lanewise round of ADD_WAVE adds or more): the route the wave rule is
-    # held against
-    def tree_only(acc, G, W):
-        wave, cuda_ec.ADD_WAVE = cuda_ec.ADD_WAVE, G * W
-        try:
-            return cuda_ec.fold_add_tree(acc, G, W)
-        finally:
-            cuda_ec.ADD_WAVE = wave
-
-    checks["fold_add_tree"][-1]["alts"]["one_launch"] = f"{name} one launch"
-    _chain_case(cases, f"{name} one launch",
-                lambda a=acc, G=G, W=W: tree_only(a, G, W),
-                cuda_ec.fold_add_tree(acc, G, W), iters)
+              plain_runs=1, groups=G, width=W, slot_limit=wave,
+              one_thread_rounds=slots.count(False),
+              slot_rounds=slots.count(True))
 
     # fold_horner at the windowed combine (B = 8, 32 digit planes, 8
-    # doublings a plane) and msm()'s (254 bit planes, 1 doubling), each
-    # also timed against its chain of fold_dbl_any and fold_add_any launches
-    def chain_horner(parts, times):
-        acc = identity_points((parts.shape[0],), dev)
-        for d in range(parts.shape[1] - 1, -1, -1):
-            acc = cuda_ec.fold_add_any(cuda_ec.fold_dbl_any(acc, times),
-                                       parts[:, d].contiguous())
-        return acc
-
+    # doublings a plane), msm()'s (254 bit planes, 1 doubling) and the
+    # proofs' lane counts
     for B, P, times, iters in ((Bm, 32, 8, 20), (1, 32, 8, 20),
                                (48, 32, 8, 20), (200, 32, 8, 20),
                                (392, 32, 8, 20), (Bm, SCALAR_BITS, 1, 10)):
         parts, mul32, chain = _horner_case(g, B, P, times, dev)
-        name = f"fold_horner B{B} P{P} x{times}"
-        extra = {"chain_case": f"{name} chain"} if B == Bm else {}
-        check("fold_horner", name,
+        check("fold_horner", f"fold_horner B{B} P{P} x{times}",
               lambda p=parts, t=times: cuda_ec.fold_horner(p, t),
               lambda p=parts, t=times: cuda_ec.fold_horner_plain(p, t),
-              iters, lat.floor(card.bound((B * P + B) * POINT_BYTES, mul32),
+              iters, lat.floor(_bound((B * P + B) * POINT_BYTES, mul32),
                                chain),
-              plain_runs=1, lanes=B, planes=P, times=times, **extra)
-        if B == Bm:
-            _chain_case(cases, f"{name} chain",
-                        lambda p=parts, t=times: chain_horner(p, t),
-                        cuda_ec.fold_horner(parts, times),
-                        max(2, iters // 4))
+              plain_runs=1, lanes=B, planes=P, times=times)
 
     # fold_mixed_tiled_rows at msm()'s full shape, all 128 rows in one
     # launch, against one plain run of the same rows
-    acc_r, pts_r, sc_r, bound, extra = _rows_case(g, Bm, C, card, dev)
+    acc_r, pts_r, sc_r, bound, extra = _rows_case(g, Bm, C, dev)
     n_r = pts_r.shape[0]
     check("fold_mixed_tiled_rows", "fold_mixed_tiled_rows",
           lambda: cuda_ec.fold_mixed_tiled_rows(acc_r, pts_r, sc_r, C, 0,
@@ -1469,27 +1076,6 @@ def phase_kernels(report: dict, card: Card) -> None:
                 f"of {ROUNDS}, {row['ms_min']:.4f}-{row['ms_max']:.4f}), "
                 f"plain {row['plain_ms']:.4f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-            if "chain_case" in row:
-                ch = times[row.pop("chain_case")]
-                row.update(chain_ms=ch["ms"], chain_ms_min=ch["ms_min"],
-                           chain_ms_max=ch["ms_max"])
-                log(f"kernel {row['case']}: the chain of launches it "
-                    f"replaces {ch['ms']:.4f} ms ({ch['ms_min']:.4f}-"
-                    f"{ch['ms_max']:.4f})")
-                if row["ms"] > ch["ms"]:
-                    raise AssertionError(f"{row['case']}: slower than the "
-                                         "chain of launches it replaces")
-            if "alt_case" in row:
-                row.setdefault("alts", {})[row.pop("alt_key", "one_launch")] \
-                    = row.pop("alt_case")
-            for key, case in row.pop("alts", {}).items():
-                alt = times[case]
-                row.update({f"{key}_ms": alt["ms"],
-                            f"{key}_ms_min": alt["ms_min"],
-                            f"{key}_ms_max": alt["ms_max"]})
-                log(f"kernel {row['case']}: {key.replace('_', ' ')} "
-                    f"{alt['ms']:.4f} ms ({alt['ms_min']:.4f}-"
-                    f"{alt['ms_max']:.4f})")
         main = rows[0]                  # the main path's shape comes first
         report[name] = {
             "name": name, "route": "cuda",
@@ -1519,12 +1105,7 @@ def phase_kernels(report: dict, card: Card) -> None:
         log(f"kernel {row['case']}: kernel / bound "
             f"{row['ms'] / row['bound_ms']:.2f}, register bits "
             f"{row['reg_bits']} a pass")
-    fp = report["field_prog"]
-    if fp["ms"] * FIELD_PROG_OVER_CHAIN > fp["cases"][0]["chain_ms"]:
-        raise AssertionError(f"field_prog: {fp['ms']:.4f} ms, more than "
-                             f"1/{FIELD_PROG_OVER_CHAIN} of the per-op route "
-                             f"({fp['cases'][0]['chain_ms']:.4f} ms)")
-    for row in fp["cases"][:2]:
+    for row in report["field_prog"]["cases"][:2]:
         log(f"kernel {row['case']}: {row['instructions']} instructions in "
             f"{row['groups']} sub-programs, {row['slots']} slots, "
             f"{row['ops']}; {row['shared_bytes_per_block']} bytes of shared "
@@ -1563,18 +1144,13 @@ def _plain_loops() -> dict:
     """The plain loops a kernel replaced, each counting its runs on CUDA
     tensors: the NTT's Stockham loop, the scan's add rounds (the
     prefix/suffix sums, div_linear and evaluations before field_linscan),
-    the product scan's rounds and the blocked mont_mul routes of the prefix
-    product and the batch inversion (the grand products and keygen's
-    window table before the product scan), and the field-program
-    interpreter (the weighted sums' tree-sum rounds before the sum
-    program)."""
-    from halo2tpu_torch.fields import jfield
+    the product scan's plain version (the grand products' prefix products
+    and the batch inversions), and the field-program interpreter (the
+    weighted sums' tree-sum rounds before the sum program)."""
     from halo2tpu_torch.ops import cuda_field, field_prog, ntt
     return {"ntt._ntt_run": ntt._ntt_run,
             "cuda_field.linscan_plain": cuda_field.linscan_plain,
             "cuda_field.prodscan_plain": cuda_field.prodscan_plain,
-            "jfield._prefix_prod_plain": jfield._prefix_prod_plain,
-            "jfield.batch_inv_scan_plain": jfield.batch_inv_scan_plain,
             "field_prog.field_prog_plain": field_prog.field_prog_plain}
 
 
@@ -1687,103 +1263,6 @@ def _record_path(report: dict, path: str, counts: dict, kernels) -> None:
 
 # -- phase 3: golden proofs --------------------------------------------------
 
-def _range_harness():
-    """The lookup-bearing RangeHarness of tests/test_gadgets.py: a 6-bit
-    range check of 45 over 4 advice and 2 lookup columns."""
-    from halo2tpu_torch.gadgets.flexgate import FlexGateConfig, GateChip
-    from halo2tpu_torch.gadgets.range import RangeChip, RangeStrategyConfig
-    from halo2tpu_torch.plonk.circuit import Circuit
-
-    class RangeHarness(Circuit):
-        def configure(self, cs):
-            gcfg = FlexGateConfig.configure(cs, 4)
-            return gcfg, RangeStrategyConfig.configure(cs, gcfg, 6, 2)
-
-        def synthesize(self, config, asn):
-            gcfg, rcfg = config
-            gate = GateChip(gcfg, asn)
-            rng = RangeChip(rcfg, gate, asn)
-            rng.load_table()
-            rng.range_check(gate.load_witness(45), 6)
-
-    return RangeHarness()
-
-
-def mini_qr() -> bytes:
-    """The synthetic 18-delimiter QR of tests/test_aadhaar_composite.py
-    (the reference's field layout, a 45-byte photo holding a 255): field 2
-    holds refid and timestamp digits, 4 the birth date, 5 the gender, 11
-    the pincode, 13 the state."""
-    fields = [b"86", b"3", b"1234" + b"20240718" + b"12" + b"4557",
-              b"Sumit Kumar", b"01-01-1984", b"M", b"CO X", b"East", b"",
-              b"B-31", b"", b"110051", b"KN", b"Delhi", b"RSP", b"GN",
-              b"KN2", b"1234"]
-    photo = bytes((i * 13 + 7) % 256 for i in range(45))
-    photo = photo[:20] + b"\xff" + photo[21:]
-    return b"\xff".join(fields) + b"\xff" + photo
-
-
-def _extractor_harness(data: bytes):
-    """The QR extractor over `data` (tests/test_qr_extractor.py's harness
-    with 4-bit lookups): the year through the qr_delim lookup (delimiter
-    2) and its four digits through qr_access, the gender byte after
-    delimiter 5 through both."""
-    from halo2tpu_torch.gadgets.flexgate import FlexGateConfig, GateChip
-    from halo2tpu_torch.gadgets.qr_extractor import (ExtractorChip,
-                                                     ExtractorConfig)
-    from halo2tpu_torch.gadgets.range import RangeChip, RangeStrategyConfig
-    from halo2tpu_torch.plonk.circuit import Circuit
-
-    class ExtractorHarness(Circuit):
-        def configure(self, cs):
-            gcfg = FlexGateConfig.configure(cs, 8)
-            rcfg = RangeStrategyConfig.configure(cs, gcfg, 4, 1)
-            return gcfg, rcfg, ExtractorConfig.configure(cs)
-
-        def synthesize(self, config, asn):
-            gcfg, rcfg, ecfg = config
-            gate = GateChip(gcfg, asn)
-            rng = RangeChip(rcfg, gate, asn)
-            rng.load_table()
-            ext = ExtractorChip(ecfg, gate, asn)
-            ext.load_data([gate.load_witness(b) for b in data])
-            year = ext.packed_digits(ext.delimiter_pos1(2), [5, 6, 7, 8], rng)
-            gender = ext.access_offset(ext.delimiter_pos1(5), 1)
-            assert (year.value, gender.value) == (2024, ord("M"))
-
-    return ExtractorHarness()
-
-
-IDENTITY_ARGS = dict(
-    reveal_age_above_18=True, age_above_18=1, qr_data_age_above_18=1,
-    reveal_gender=True, gender=77, qr_data_gender=77,
-    reveal_pincode=True, pincode=110051, qr_data_pincode=110051,
-    reveal_state=True, state=[68, 101, 108, 104, 105],
-    qr_data_state=[68, 101, 108, 104, 105])
-# the nullifier's photo: 124 bytes, 4 packed field elements
-NULLIFIER_PHOTO = bytes((i * 7 + 3) % 256 for i in range(124))
-
-
-def golden_circuits():
-    """name -> (circuit, k, instances, rng_seed): the port's circuits of
-    tests/golden/torch_port_proofs.json."""
-    from halo2tpu_torch.circuits.conditional_secrets import IdentityCircuit
-    from halo2tpu_torch.circuits.nullifier import NullifierCircuit
-    from halo2tpu_torch.circuits.signal import SquareCircuit
-    from halo2tpu_torch.circuits.timestamp import TimestampCircuit
-    sq = SquareCircuit(5)
-    rh = _range_harness()
-    nul = NullifierCircuit(12345678, NULLIFIER_PHOTO)
-    return {
-        "square_k4": (sq, 4, sq.instances(), 11),
-        "timestamp_k6": (TimestampCircuit(2023, 7, 8, 12, 34, 56), 6, [], 27),
-        "range_k7": (rh, 7, [], 22),
-        "identity_k4": (IdentityCircuit(**IDENTITY_ARGS), 4, [], 5),
-        "nullifier_k10": (nul, 10, nul.instances(), 31),
-        "extractor_k8": (_extractor_harness(mini_qr()), 8, [], 33),
-    }
-
-
 def phase_golden() -> None:
     from halo2tpu_torch.plonk.keygen import keygen
     from halo2tpu_torch.plonk.prover import create_proof
@@ -1806,26 +1285,6 @@ def phase_golden() -> None:
 
 
 # -- phase 4: the RSA-SHA256 k=15 slice --------------------------------------
-
-def _pkcs1v15_sha256_sign(p: int, q: int, e: int, msg: bytes) -> int:
-    """RSASSA-PKCS1-v1_5 SHA-256 signature (RFC 8017 section 8.2.1) with
-    the pinned key, in plain integers."""
-    n = p * q
-    d = pow(e, -1, (p - 1) * (q - 1))
-    prefix = bytes.fromhex("3031300d060960864801650304020105000420")
-    t = prefix + hashlib.sha256(msg).digest()
-    k = (n.bit_length() + 7) // 8
-    em = b"\x00\x01" + b"\xff" * (k - len(t) - 3) + b"\x00" + t
-    return pow(int.from_bytes(em, "big"), d, n)
-
-
-def rsa_circuit():
-    from halo2tpu_torch.circuits.rsa_sha256 import RSASha256Circuit
-    with open(os.path.join(ROOT, "tests/golden/rsa_key_2048.json")) as f:
-        key = json.load(f)
-    sig = _pkcs1v15_sha256_sign(key["p"], key["q"], key["e"], RSA_MESSAGE)
-    return RSASha256Circuit(RSA_MESSAGE, key["p"] * key["q"], sig)
-
 
 def phase_slice(report: dict, cache_dir: str):
     """Returns (srs, engine) for phase 5."""
@@ -1873,7 +1332,7 @@ def phase_slice(report: dict, cache_dir: str):
     from profile_proof import profile_run
     profiled, prof = profile_run(
         lambda: create_proof(pk, srs, c, c.instances(), rng_seed=4,
-                             engine=eng), cache_dir)
+                             engine=eng))
     sha = hashlib.sha256(proof).hexdigest()
     phases = {p: round(v, 3) for p, v in tr.phases.items()}
     log(f"slice: cold proof {cold:.2f} s, warm proof {warm:.2f} s")
@@ -1940,7 +1399,7 @@ def phase_slice(report: dict, cache_dir: str):
     # weighted sums) at the rows it ran them over, against the interpreter
     checked = _path_shape_checks(
         "slice", {"field_prog": warm_shapes["field_prog"]},
-        _path_programs(eng, pk), None, "cuda")
+        _path_programs(eng, pk), "cuda")
     log(f"slice: the warm proof's field programs bitwise equal to the "
         f"interpreter at each of their {checked['field_prog']} shapes")
     report["ntt"].update(advice_ntt_s=tr.phases["advice_ntt"],
@@ -2058,35 +1517,6 @@ def phase_msm(report: dict, srs, eng) -> None:
 
 # -- phase 6: the composite Aadhaar circuit at k=15 --------------------------
 
-COMPOSITE_SEED = 12345678        # nullifier seed and signal of halo2tpu's
-COMPOSITE_SIGNAL = 4294967295    # slow test (tests/test_aadhaar_composite.py)
-COMPOSITE_SIGNED_LEN = 700
-# the golden QR's fields (tests/test_qr_extractor.py)
-COMPOSITE_FIELDS = {"gender": ord("M"), "pincode": 110051,
-                    "state_packed": int.from_bytes(b"Delhi" + bytes(11),
-                                                   "little")}
-
-
-def composite_circuit():
-    """The composite Aadhaar circuit at the default AadhaarParams (k=15)
-    over the full 1137-byte golden QR, the first 700 bytes signed with the
-    pinned key."""
-    from halo2tpu_torch.circuits.aadhaar_qr import (AadhaarParams,
-                                                    AadhaarQRVerifierCircuit,
-                                                    AadhaarWitness)
-    with open(os.path.join(ROOT, "tests/golden/qr_msg.json")) as f:
-        qr = bytes(json.load(f)["msg"])
-    with open(os.path.join(ROOT, "tests/golden/rsa_key_2048.json")) as f:
-        key = json.load(f)
-    sig = _pkcs1v15_sha256_sign(key["p"], key["q"], key["e"],
-                                qr[:COMPOSITE_SIGNED_LEN])
-    w = AadhaarWitness(qr, key["p"] * key["q"], sig,
-                       nullifier_seed=COMPOSITE_SEED,
-                       signal_hash=COMPOSITE_SIGNAL)
-    return AadhaarQRVerifierCircuit(w, AadhaarParams(
-        signed_len=COMPOSITE_SIGNED_LEN))
-
-
 def _check_composite_instances(c) -> None:
     """The public instances are the native outputs, field by field, and
     hold the golden QR's gender, pincode and state."""
@@ -2111,7 +1541,7 @@ def _check_composite_instances(c) -> None:
         raise AssertionError("composite: nullifier or age flag is wrong")
 
 
-def phase_composite(report: dict, srs, cache_dir: str) -> None:
+def phase_composite(report: dict, srs) -> None:
     """Keygen, a cold and two warm proofs of the composite circuit on the
     card, on phase 4's SRS (and, through it, its MSM window table)."""
     import torch
@@ -2164,8 +1594,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     peak = torch.cuda.max_memory_allocated()
     from profile_proof import profile_run
     profiled, prof = profile_run(
-        lambda: create_proof(pk, srs, c, inst, rng_seed=8, engine=eng),
-        cache_dir)
+        lambda: create_proof(pk, srs, c, inst, rng_seed=8, engine=eng))
     st = _get_state(pk, eng)
     prog = st.quotient_program
     sha = hashlib.sha256(proof).hexdigest()
@@ -2222,7 +1651,7 @@ def phase_composite(report: dict, srs, cache_dir: str) -> None:
     # compressions, the weighted sums), as phase 4 checks RSA's
     checked = _path_shape_checks(
         "composite", {"field_prog": warm_shapes["field_prog"]},
-        _path_programs(eng, pk), None, "cuda")
+        _path_programs(eng, pk), "cuda")
     log(f"composite: the warm proof's field programs bitwise equal to the "
         f"interpreter at each of their {checked['field_prog']} shapes")
     for name, n in per_warm.items():
@@ -2330,8 +1759,7 @@ def _path_programs(eng, pk) -> list:
             + list(_SUM_PROGRAMS.values()))
 
 
-def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
-                       dev) -> dict:
+def _path_shape_checks(path: str, hist: dict, programs: list, dev) -> dict:
     """Each kernel of a path at every shape the path launched it with (hist:
     kernel -> Counter of SHAPE_KEYS tuples), on new random inputs of that
     shape, bitwise against its plain version: both directions of a scan,
@@ -2414,7 +1842,7 @@ def _path_shape_checks(path: str, hist: dict, programs: list, card: "Card",
         if name == "fold_mixed_tiled_rows":
             L, C, rows = key
             acc, pts, sc, _, _ = _rows_case(g, L // (SCALAR_BITS * C), C,
-                                            card, dev, n=C * rows)
+                                            dev, n=C * rows)
             return [("rows", lambda: cuda_ec.fold_mixed_tiled_rows(
                         acc, pts, sc, C, 0, rows),
                      lambda: cuda_ec.fold_mixed_tiled_rows_plain(
@@ -2595,7 +2023,7 @@ def phase_sharded(report: dict, srs, cache_dir: str) -> None:
     from profile_proof import profile_run
     profiled, prof = profile_run(
         lambda: create_proof(pk, srs, c, c.instances(), rng_seed=4,
-                             engine=eng), cache_dir)
+                             engine=eng))
     sha = hashlib.sha256(proof).hexdigest()
     phases = {p: round(v, 3) for p, v in tr.phases.items()}
     single = {k_: report[k_].get("launches_per_warm_proof", 0)
@@ -2625,7 +2053,7 @@ def phase_sharded(report: dict, srs, cache_dir: str) -> None:
                  SHARDED_KERNELS)
     # every kernel of the warm proof at each shape it launched it with
     checked = _path_shape_checks("sharded", warm_shapes,
-                                 _path_programs(eng, pk), Card(), "cuda")
+                                 _path_programs(eng, pk), "cuda")
     log("sharded: every kernel of the warm proof bitwise equal to its "
         f"plain version at each of its shapes {json.dumps(checked)}")
     out["shapes_checked"] = checked
@@ -2690,7 +2118,6 @@ def phase_mock(report: dict) -> None:
     nullifier seed failing; mont_mul at each lane count and every field
     program it ran against their plain versions."""
     import torch
-    from halo2tpu_torch.ops.field_prog import field_prog
     from halo2tpu_torch.plonk.mock import MockProver
     with open(os.path.join(ROOT, "tests/golden/mock_k15_failures.json")) as f:
         golden = json.load(f)
@@ -2735,7 +2162,7 @@ def phase_mock(report: dict) -> None:
     t0 = time.perf_counter()
     checked = _path_shape_checks(
         "mock", {k: shapes[k] for k in ("mont_mul", "field_prog")},
-        list(launched.values()), None, "cuda")
+        list(launched.values()), "cuda")
     log(f"mock: mont_mul at lanes {sorted(k[0] for k in shapes['mont_mul'])}"
         f" and the {len(launched)} field programs it ran bitwise equal to "
         f"their plain versions, shapes by kernel {json.dumps(checked)} "
@@ -2794,17 +2221,16 @@ def main() -> int:
                 "called functions (calls from the body): " + "; ".join(
                     f"{p['instructions']}, {p['imad']}, {p['imad_wide']} "
                     f"({p['body_calls']})" for p in c["parts"]))
-    card = Card()
-    log(f"bound: {card.sms} SMs x {IMAD_PER_SM_CLOCK} x "
-        f"{card.sm_hz / 1e6:.0f} MHz = {card.mul32_per_s:.4g} 32-bit "
-        f"multiplies/s; {HBM_BYTES_PER_S:.4g} B/s")
+    log(f"bound: {peaks.SMS} SMs x {peaks.IMAD_PER_SM_CLOCK} x "
+        f"{peaks.CLOCK_HZ / 1e6:.0f} MHz = {peaks.MUL32_PER_S:.4g} 32-bit "
+        f"multiplies/s; {peaks.HBM_BYTES_PER_S:.4g} B/s")
 
     cache_dir = os.path.join(ROOT, ".cache", "chip_smoke")
     shutil.rmtree(cache_dir, ignore_errors=True)
     os.environ["HALO2TPU_CACHE"] = cache_dir      # no on-disk MSM table
     report: dict = {}
     try:
-        phase_kernels(report, card)
+        phase_kernels(report)
         for name, entry in report.items():
             res = _build.resources[KERNEL_OF[name]]
             entry["registers"] = res["registers"]
@@ -2830,7 +2256,7 @@ def main() -> int:
                 f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} "
                 "bytes shared")
         add = report["fold_add"]
-        add.update(_issue_bound(sass, card, add["cases"][0]["lanes"]))
+        add.update(_issue_bound(sass, add["cases"][0]["lanes"]))
         log(f"kernel fold_add: {add['sass_per_lane']} SASS instructions a "
             f"generic lane ({add['fe_mul_calls']} fe_mul calls); at "
             f"{add['cases'][0]['lanes']} lanes the issue "
@@ -2840,7 +2266,7 @@ def main() -> int:
         srs, eng = phase_slice(report, cache_dir)
         phase_msm(report, srs, eng)
         del eng
-        phase_composite(report, srs, cache_dir)
+        phase_composite(report, srs)
         phase_sharded(report, srs, cache_dir)
         phase_mock(report)
     finally:

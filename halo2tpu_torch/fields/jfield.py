@@ -9,7 +9,7 @@ without arithmetic (halo2tpu_torch/convert.py).
 mont_mul, mont_pow, add/sub/neg, the prefix and suffix sums (the linear
 scan) and the prefix products (the product scan) launch the CUDA kernels
 (ops/cuda_field.py) for CUDA tensors and run their plain torch versions
-for CPU tensors (the prefix product's: blocked rounds of mont_mul).
+for CPU tensors.
 Python ints become host limbs through the host packer (csrc/host_pack.c,
 pack_limbs16 and pack_u16), and random big-endian words through its
 reduce_be256, on every device.
@@ -295,18 +295,6 @@ def inv(spec: FieldSpec, a):
     return mont_pow(spec, a, spec.p - 2)
 
 
-def _scan_rounds(a, op):
-    """Inclusive scan of op along axis 0 in Hillis-Steele rounds: log2(n)
-    launches, each over every row that has a partner (the prefix
-    product's last few rows)."""
-    n = a.shape[0]
-    x, shift = a, 1
-    while shift < n:
-        x = torch.cat([x[:shift], op(x[shift:], x[:n - shift])])
-        shift *= 2
-    return x
-
-
 def _prefix_sum_mod(spec: FieldSpec, a):
     """Inclusive prefix sum mod p along axis 0 of an (n, 8) vector (one
     field_linscan call on CUDA)."""
@@ -318,86 +306,19 @@ def suffix_sum_mod(spec: FieldSpec, a):
     return cuda_field.linscan(spec, a, reverse=True)
 
 
-_SCAN_BLOCK = 16
-
-
-def _prefix_prod_plain(spec: FieldSpec, a):
-    """Inclusive prefix product along axis 0, blocked, in mont_mul
-    launches: a sequential scan inside blocks of 16 rows (16 batched
-    multiplies over n/16 rows each), the same scan recursively over the
-    block totals, then one multiply by each block's exclusive prefix --
-    about 2n products in all.  At most 16 rows take Hillis-Steele rounds.
-    The plain version of _prefix_prod's kernel route (cuda_calls counts its
-    runs on CUDA tensors)."""
-    if a.device.type == "cuda":
-        _prefix_prod_plain.cuda_calls += 1
-    n = a.shape[0]
-    b = _SCAN_BLOCK
-    if n <= b:
-        return _scan_rounds(a, lambda x, y: mont_mul(spec, x, y))
-    nb = -(-n // b)
-    pad = one_like(spec, a[:1]).expand((nb * b - n,) + a.shape[1:])
-    x = torch.cat([a, pad]).reshape((nb, b) + a.shape[1:])
-    cols = [x[:, 0]]
-    for j in range(1, b):
-        cols.append(mont_mul(spec, cols[-1], x[:, j]))
-    x = torch.stack(cols, dim=1)
-    carry = _prefix_prod_plain(spec, x[:, -1])[:-1]  # block totals' prefix
-    x = torch.cat([x[:1], mont_mul(spec, x[1:], carry[:, None])])
-    return x.reshape((nb * b,) + a.shape[1:])[:n]
-
-
-_prefix_prod_plain.cuda_calls = 0
-
-
 def _prefix_prod(spec: FieldSpec, a):
-    """Inclusive prefix product along axis 0 of an (n, ..., 8) tensor.  On
-    CUDA one prodscan launch over the columns behind axis 0 (read in place);
-    on the CPU _prefix_prod_plain."""
-    if a.device.type == "cpu":
-        return _prefix_prod_plain(spec, a)
-    return _prefix_prod_scan(spec, a)
-
-
-def _prefix_prod_scan(spec: FieldSpec, a):
-    """_prefix_prod's kernel route on any device: one prodscan over the
-    columns behind axis 0."""
+    """Inclusive prefix product along axis 0 of an (n, ..., 8) tensor: one
+    prodscan over the columns behind axis 0 (one launch on CUDA)."""
     cols = a.reshape(a.shape[0], -1, NLIMB).transpose(0, 1)
     return prodscan(spec, cols).transpose(0, 1).reshape(a.shape)
-
-
-def batch_inv_scan_plain(spec: FieldSpec, a):
-    """batch_inv_scan by blocked prefix and suffix products
-    (_prefix_prod_plain) and one Fermat inversion; cuda_calls counts its
-    runs on CUDA tensors."""
-    if a.device.type == "cuda":
-        batch_inv_scan_plain.cuda_calls += 1
-    prefix = _prefix_prod_plain(spec, a)
-    suffix = torch.flip(_prefix_prod_plain(spec, torch.flip(a, [0])), [0])
-    total_inv = inv(spec, prefix[-1:])
-    one = spec.const("one_mont", a.device)[None]
-    prefix_shift = torch.cat([one, prefix[:-1]])
-    suffix_shift = torch.cat([suffix[1:], one])
-    return mont_mul(spec, mont_mul(spec, prefix_shift, suffix_shift),
-                    total_inv)
-
-
-batch_inv_scan_plain.cuda_calls = 0
 
 
 def batch_inv_scan(spec: FieldSpec, a):
     """Batched inversion over the leading axis: each entry times the
     product of all the others (an exclusive prefix and an exclusive suffix
     product) times the inverse of the total (one Fermat inversion).  a:
-    (n, 8), nonzero entries.  On CUDA two prodscan launches, the total, one
-    fe_pow and two products; on the CPU batch_inv_scan_plain."""
-    if a.device.type == "cpu":
-        return batch_inv_scan_plain(spec, a)
-    return _batch_inv_prodscan(spec, a)
-
-
-def _batch_inv_prodscan(spec: FieldSpec, a):
-    """batch_inv_scan's kernel route on any device."""
+    (n, 8), nonzero entries.  Two prodscan calls, the total, one mont_pow
+    and two products (on CUDA one launch each)."""
     prefix = prodscan(spec, a, exclusive=True)
     suffix = prodscan(spec, a, reverse=True, exclusive=True)
     total_inv = inv(spec, mont_mul(spec, prefix[-1:], a[-1:]))

@@ -299,24 +299,20 @@ fold_add_any.shapes = Counter()
 # 132 SMs (4 blocks an SM).  Smaller rounds go to fold_add_tree's kernel.
 # At msm()'s tail (2032 groups of 256) two lanewise rounds and one tree
 # launch beat one tree launch of all eight rounds, whose blocks hold one
-# group each and leave most warps idle after the first round
-# (chip_smoke.py phase 2 times both).
+# group each and leave most warps idle after the first round (measured on
+# an H100).
 ADD_WAVE = 1 << 16
 TREE_LANES = 256   # lanes one block of the tree kernel sums: 128 threads
 TREE_SLOTS = 4     # threads an add of a slot round
-# A tree round runs each add on TREE_SLOTS threads when those fit in this
-# many threads, else one add a thread; None: one wave of the add kernel on
-# the card (SMs x 4 blocks x 128 threads, 67,584 on an H100).  chip_smoke.py
-# times the switch a round earlier and a round later.
-TREE_SLOT_LIMIT = None
 
 _TREE_COUNTERS: dict = {}
 _TREE_WAVES: dict = {}
 
 
 def tree_slot_limit(device) -> int:
-    if TREE_SLOT_LIMIT is not None:
-        return TREE_SLOT_LIMIT
+    """A tree round runs each add on TREE_SLOTS threads when those fit in
+    this many threads, else one add a thread: one wave of the add kernel
+    on the card (SMs x 4 blocks x 128 threads, 67,584 on an H100)."""
     wave = _TREE_WAVES.get(device)
     if wave is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count

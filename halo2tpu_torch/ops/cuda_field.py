@@ -602,20 +602,46 @@ def linscan_plain(spec, v, a: int = 1, reverse: bool = False,
 linscan_plain.cuda_calls = 0
 
 
+_SCAN_BLOCK = 16
+
+
+def _prefix_prod_blocked(spec, x):
+    """Inclusive prefix product along axis -2 of x in mont_mul_plain
+    calls: a sequential scan inside blocks of _SCAN_BLOCK rows (one call a
+    step, over every block at once), the same scan over the block totals,
+    then one product by each block's exclusive prefix: about 2n products
+    in all, against n log2 n in Hillis-Steele rounds.  At most
+    _SCAN_BLOCK rows take Hillis-Steele rounds."""
+    n, b = x.shape[-2], _SCAN_BLOCK
+    if n <= b:
+        shift = 1
+        while shift < n:
+            x = torch.cat([x[..., :shift, :], mont_mul_plain(
+                spec, x[..., shift:, :], x[..., :n - shift, :])], -2)
+            shift *= 2
+        return x
+    lead, nb = x.shape[:-2], -(-n // b)
+    one = spec.const("one_mont", x.device)
+    x = torch.cat([x, one.expand(lead + (nb * b - n, NLIMB))], -2)
+    x = x.reshape(lead + (nb, b, NLIMB))
+    rows = [x[..., 0, :]]
+    for j in range(1, b):
+        rows.append(mont_mul_plain(spec, rows[-1], x[..., j, :]))
+    x = torch.stack(rows, -2)
+    carry = _prefix_prod_blocked(spec, x[..., -1, :])[..., :-1, :]
+    x = torch.cat([x[..., :1, :, :], mont_mul_plain(
+        spec, x[..., 1:, :, :], carry[..., None, :])], -3)
+    return x.reshape(lead + (nb * b, NLIMB))[..., :n, :]
+
+
 def prodscan_plain(spec, r, reverse: bool = False, exclusive: bool = False,
                    totals: bool = False):
     """x_j = r_j x_(j-1) mod p (x_(-1) = 1) along axis -2 of r ((n, 8) or
-    (C, n, 8), Montgomery), in plain torch: Hillis-Steele rounds of
-    mont_mul_plain.  reverse, exclusive (1 at the first) and totals as in
-    linscan_plain."""
+    (C, n, 8), Montgomery), in plain torch (_prefix_prod_blocked).
+    reverse, exclusive (1 at the first) and totals as in linscan_plain."""
     if r.device.type == "cuda":
         prodscan_plain.cuda_calls += 1
-    x = r.flip(-2) if reverse else r
-    n, shift = x.shape[-2], 1
-    while shift < n:
-        x = torch.cat([x[..., :shift, :], mont_mul_plain(
-            spec, x[..., shift:, :], x[..., :n - shift, :])], -2)
-        shift *= 2
+    x = _prefix_prod_blocked(spec, r.flip(-2) if reverse else r)
     if totals:
         return x[..., -1, :].contiguous()
     if exclusive:

@@ -14,9 +14,7 @@ cached on the prover's _PkState) and runs as one field_prog launch a part
 Field ops on canonical values are exact, so the Horner y-fold gives the
 bits of halo2tpu's weighted reduction.  The prover's n-domain lookup
 compression (TorchEngine.compress_exprs) compiles its expressions the same
-way, one program a compression.  `_val_fn_for` evaluates an expression one
-field op a launch (torch callables cached by structure): the per-op route
-that chip_smoke.py holds the field_prog kernel against.
+way, one program a compression.
 
 Fold order (gates, then permutation rules, then per-lookup rules) is pinned
 by the verifier's y-Horner and must match halo2tpu/plonk/verifier.py.
@@ -24,93 +22,12 @@ by the verifier's y-Horner and must match halo2tpu/plonk/verifier.py.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..fields.bn254 import R, FR_DELTA
 from .expression import (AdviceQuery, Constant, FixedQuery, InstanceQuery,
                          Neg, Product, Sum)
-from ..fields import jfield
-from ..fields.jfield import FR
 from ..ops.field_prog import (ADD, CONST, HORNER, LOAD, MUL, NEG, OUT, S_MAX,
                               SQR, SUB, Program, groups_for)
-
-
-# ---------------------------------------------------------------------------
-# structural expression compiler
-
-_FOLD_FNS: dict[str, object] = {}
-
-
-def _walk(e, leaves, toks):
-    if isinstance(e, Constant):
-        leaves.append(("const", e.value))
-        toks.append("c")
-    elif isinstance(e, AdviceQuery):
-        leaves.append(("advice", e.column_index))
-        toks.append(f"a{e.rotation};")
-    elif isinstance(e, FixedQuery):
-        leaves.append(("fixed", e.column_index))
-        toks.append(f"f{e.rotation};")
-    elif isinstance(e, InstanceQuery):
-        leaves.append(("instance", e.column_index))
-        toks.append(f"i{e.rotation};")
-    elif isinstance(e, Neg):
-        toks.append("n(")
-        _walk(e.expr, leaves, toks)
-        toks.append(")")
-    elif isinstance(e, Sum):
-        toks.append("s(")
-        _walk(e.lhs, leaves, toks)
-        toks.append(",")
-        _walk(e.rhs, leaves, toks)
-        toks.append(")")
-    elif isinstance(e, Product):
-        toks.append("p(")
-        _walk(e.lhs, leaves, toks)
-        toks.append(",")
-        _walk(e.rhs, leaves, toks)
-        toks.append(")")
-    else:  # pragma: no cover
-        raise TypeError(f"unknown expr node {type(e)}")
-
-
-def _make_val_fn(expr):
-    """Build fn(*leaf_tensors) -> expression value.  Expressions with the
-    same structure token evaluate identically from their own leaves, so
-    the fn built from the first instance serves all of them."""
-
-    def f(*args):
-        it = iter(args)
-        shape = next(a.shape for a in args if a.dim() == 2)
-
-        def ev(e):
-            if isinstance(e, Constant):
-                return next(it).expand(shape)
-            if isinstance(e, (AdviceQuery, FixedQuery, InstanceQuery)):
-                a = next(it)
-                r = e.rotation % a.shape[0]
-                return torch.roll(a, -r, 0) if r else a
-            if isinstance(e, Neg):
-                return jfield.neg(FR, ev(e.expr))
-            if isinstance(e, Sum):
-                return jfield.add(FR, ev(e.lhs), ev(e.rhs))
-            return jfield.mont_mul(FR, ev(e.lhs), ev(e.rhs))
-
-        return ev(expr)
-
-    return f
-
-
-def _val_fn_for(expr):
-    leaves: list = []
-    toks: list = []
-    _walk(expr, leaves, toks)
-    key = "".join(toks)
-    fn = _FOLD_FNS.get(key)
-    if fn is None:
-        fn = _make_val_fn(expr)
-        _FOLD_FNS[key] = fn
-    return fn, leaves
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ NVIDIA GPU.
 
 Imports halo2tpu_torch from DIR (default: this file's directory), so that
 two trees (a commit and its parent, unpacked with `git archive`) can be
-compared in one run on one card.  Proves chip_smoke.rsa_circuit() (1024-
-byte message, pinned key; seed 4) or chip_smoke.composite_circuit() (the
-composite Aadhaar circuit over the golden QR; seed 8): setup(15), keygen,
+compared in one run on one card.  Proves port_circuits.rsa_circuit()
+(1024-byte message, pinned key; seed 4) or
+port_circuits.composite_circuit() (the composite Aadhaar circuit over the
+golden QR; seed 8): setup(15), keygen,
 a cold proof, WARM warm proofs with the prover's phase times, then one
 more warm proof under torch.profiler.  Prints one JSON line: the card's
 name and power limit, the warm proof seconds and every phase's seconds of
@@ -43,7 +44,8 @@ inversions), and for a tree that splits field programs the part programs at ever
 sub-program count G.  Each is the median of ROUNDS rounds of CUDA-event means (kernels)
 or of synchronized wall times (engine calls); one JSON line.
 
-`profile_run` (also used by chip_smoke.py) profiles any call.
+`profile_run` (also used by chip_smoke.py) profiles any call through
+portbench/tracing.py's profiler and trace reduction.
 """
 from __future__ import annotations
 
@@ -57,23 +59,10 @@ import subprocess
 import sys
 import time
 
+from portbench.tracing import profiled, reduce_trace
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-MARK = "profiled_call"
 WARM = 2
-
-
-def _union_us(spans) -> float:
-    """Total length of the union of (start, end) spans."""
-    total, end = 0.0, None
-    for s, e in sorted(spans):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def record_lines(rec) -> list[str]:
@@ -98,54 +87,31 @@ def record_lines(rec) -> list[str]:
 
 
 def busy_from_trace(events, names=()) -> dict:
-    """Chrome-trace events of one profiled call (marked MARK) -> the CUDA
-    kernels that ran in it, their device time, the share of the call's
-    wall time in which the device ran a kernel, a copy or a memset, and
-    for each of `names` (the port's __global__ functions) its kernels'
-    count and summed device ms."""
-    mark = next(e for e in events if e.get("name") == MARK
-                and e.get("cat") == "user_annotation")
-    t0, t1 = mark["ts"], mark["ts"] + mark["dur"]
-    gpu = [e for e in events if e.get("cat") in GPU_CATS
-           and e["ts"] < t1 and e["ts"] + e.get("dur", 0) > t0]
-    kernels = [e for e in gpu if e["cat"] == "kernel"]
-    spans = [(max(e["ts"], t0), min(e["ts"] + e.get("dur", 0), t1))
-             for e in gpu]
-    busy = _union_us(spans)
+    """Chrome-trace events of one profiled call (portbench/tracing.py::
+    profiled) -> the CUDA kernels that ran in it, their device time, the
+    share of the call's wall time in which the device ran a kernel, a copy
+    or a memset (reduce_trace's busy union), and for each of `names` (the
+    port's __global__ functions) its kernels' count and summed device
+    ms."""
+    red = reduce_trace(events, ())
+    kernels = red["kernels"]
     by_name = {}
     for k in names:
-        mine = [e for e in kernels
-                if re.search(rf"\b{k}\b", e.get("name", ""))]
+        mine = [d for name, d in kernels if re.search(rf"\b{k}\b", name)]
         if mine:
-            by_name[k] = {"kernels": len(mine), "ms": sum(
-                e.get("dur", 0) for e in mine) / 1e3}
+            by_name[k] = {"kernels": len(mine), "ms": sum(mine) * 1e3}
     return {"cuda_kernels": len(kernels), "kernels_by_name": by_name,
-            "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
-            "device_busy_ms": busy / 1e3, "window_ms": (t1 - t0) / 1e3,
-            "busy_share": busy / (t1 - t0)}
+            "kernel_ms": sum(d for _, d in kernels) * 1e3,
+            "device_busy_ms": red["busy_s"] * 1e3,
+            "window_ms": red["window_s"] * 1e3,
+            "busy_share": red["busy_s"] / red["window_s"]}
 
 
-def profile_run(fn, workdir: str):
+def profile_run(fn):
     """fn() under torch.profiler (CPU and CUDA activity), ended by a CUDA
-    synchronize; returns (fn's result, busy_from_trace of its trace).  The
-    trace file is written under workdir and removed."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    synchronize; returns (fn's result, busy_from_trace of its trace)."""
     from halo2tpu_torch._build import KERNELS
-    os.makedirs(workdir, exist_ok=True)
-    path = os.path.join(workdir, f"trace_{os.getpid()}.json")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(MARK):
-            out = fn()
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
-    try:
-        with open(path) as f:
-            trace = json.load(f)
-    finally:
-        os.remove(path)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out, events = profiled(fn)
     return out, busy_from_trace(events, KERNELS)
 
 
@@ -175,14 +141,6 @@ ROUNDS = 5
 # vectors of the grand products timed by --kernels (the composite proof's
 # permutation chunks and lookups are about 80)
 GP_COLUMNS = 80
-
-
-class _NoBound:
-    """chip_smoke._field_prog_case's card, for the bound not asked here."""
-
-    @staticmethod
-    def bound(nbytes, mul32):
-        return {}
 
 
 def _median_event_ms(fn, iters: int) -> float:
@@ -220,7 +178,8 @@ def _median_wall_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
+def kernel_times(chip_smoke, port_circuits, device="cuda",
+                 n: int = 1 << 15) -> dict:
     """The --kernels timings of the imported tree (see the docstring), at
     n rows on `device`."""
     import torch
@@ -231,10 +190,10 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
     dev = torch.device(device)
     g = torch.Generator().manual_seed(7)
     out = {}
-    for case, circuit in (("rsa", chip_smoke.rsa_circuit()),
-                          ("composite", chip_smoke.composite_circuit())):
-        prog, by_key, consts, _, _, _, _ = chip_smoke._field_prog_case(
-            circuit, g, n, _NoBound, dev)
+    for case, circuit in (("rsa", port_circuits.rsa_circuit()),
+                          ("composite", port_circuits.composite_circuit())):
+        prog, by_key, consts, _ = chip_smoke._field_prog_case(circuit, g, n,
+                                                              dev)
         leaves = [by_key[k] for k in prog.leaf_keys]
         out[f"field_prog_{case}_part_ms"] = _median_event_ms(
             lambda: field_prog(jfield.FR, prog, leaves, consts, n), 10)
@@ -243,7 +202,7 @@ def kernel_times(chip_smoke, device="cuda", n: int = 1 << 15) -> dict:
             from halo2tpu_torch.fields.bn254 import R
             from halo2tpu_torch.ops.field_prog import G_MAX
             from halo2tpu_torch.plonk.quotient import part_program
-            cs_ = chip_smoke._configured_cs(circuit)
+            cs_ = port_circuits._configured_cs(circuit)
             for G in range(1, G_MAX + 1):
                 p = part_program(cs_, n, groups=G)
                 c = jfield.FR.encode([(i * 7919 + 1) % R for i in range(
@@ -359,6 +318,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     sys.path.insert(0, tree)
     import chip_smoke
+    import port_circuits
     from halo2tpu_torch.plonk.engine import TorchEngine
     from halo2tpu_torch.plonk.keygen import keygen
     from halo2tpu_torch.plonk.prover import create_proof
@@ -375,14 +335,14 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     if args.kernels:
         print(json.dumps({"tree": tree, "nvidia_smi": smi,
-                          **kernel_times(chip_smoke)}))
+                          **kernel_times(chip_smoke, port_circuits)}))
         return 0
     workdir = os.path.join(tree, ".cache", "profile_proof")
     os.environ["HALO2TPU_CACHE"] = workdir    # no on-disk MSM table
     if args.circuit == "rsa":
-        c, seed = chip_smoke.rsa_circuit(), 4
+        c, seed = port_circuits.rsa_circuit(), 4
     else:
-        c, seed = chip_smoke.composite_circuit(), 8
+        c, seed = port_circuits.composite_circuit(), 8
     inst = c.instances()
     out = {"tree": tree, "circuit": args.circuit, "nvidia_smi": smi}
     try:
@@ -416,7 +376,7 @@ def main() -> int:
             wrappers["mont_mul"].shapes.items())}
         proof, prof = profile_run(
             lambda: create_proof(pk, srs, c, inst, rng_seed=seed,
-                                 engine=eng), workdir)
+                                 engine=eng))
         out["profiled_warm_proof"] = prof
         if not verify_proof(vk, srs, inst, proof):
             raise AssertionError("profile_proof: the proof does not verify")

@@ -1,8 +1,8 @@
 """The composite Aadhaar k=15 proof's golden
 (tests/golden/composite_k15_host_proof.json): the sha256 of halo2tpu's
-HostEngine proof of chip_smoke.composite_circuit()'s circuit at rng_seed 8,
-held to chip_smoke.py's literal pin COMPOSITE_PROOF_SHA256 (the port's
-proof on the card must have it) and to the inputs chip_smoke signs.
+HostEngine proof of port_circuits.composite_circuit()'s circuit at rng_seed 8,
+held to port_circuits.py's literal pin COMPOSITE_PROOF_SHA256 (the port's
+proof on the card must have it) and to the inputs port_circuits signs.
 halo2tpu's circuit and the port's, built from those inputs, have the same
 instances.
 
@@ -21,7 +21,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402
+import port_circuits  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests/golden/composite_k15_host_proof.json")
 
@@ -32,7 +32,7 @@ def _qr() -> bytes:
 
 
 def _halo2tpu_circuit():
-    """halo2tpu's AadhaarQRVerifierCircuit over chip_smoke's QR, key,
+    """halo2tpu's AadhaarQRVerifierCircuit over port_circuits' QR, key,
     signature, nullifier seed and signal."""
     from halo2tpu.circuits.aadhaar_qr import (AadhaarParams,
                                               AadhaarQRVerifierCircuit,
@@ -40,25 +40,25 @@ def _halo2tpu_circuit():
     with open(os.path.join(ROOT, "tests/golden/rsa_key_2048.json")) as f:
         key = json.load(f)
     qr = _qr()
-    sig = chip_smoke._pkcs1v15_sha256_sign(
-        key["p"], key["q"], key["e"], qr[:chip_smoke.COMPOSITE_SIGNED_LEN])
+    sig = port_circuits._pkcs1v15_sha256_sign(
+        key["p"], key["q"], key["e"], qr[:port_circuits.COMPOSITE_SIGNED_LEN])
     w = AadhaarWitness(qr, key["p"] * key["q"], sig,
-                       nullifier_seed=chip_smoke.COMPOSITE_SEED,
-                       signal_hash=chip_smoke.COMPOSITE_SIGNAL)
+                       nullifier_seed=port_circuits.COMPOSITE_SEED,
+                       signal_hash=port_circuits.COMPOSITE_SIGNAL)
     return AadhaarQRVerifierCircuit(w, AadhaarParams(
-        signed_len=chip_smoke.COMPOSITE_SIGNED_LEN))
+        signed_len=port_circuits.COMPOSITE_SIGNED_LEN))
 
 
 def test_composite_host_golden_is_the_card_pin():
     with open(GOLDEN) as f:
         g = json.load(f)
-    assert g["sha256"] == chip_smoke.COMPOSITE_PROOF_SHA256
+    assert g["sha256"] == port_circuits.COMPOSITE_PROOF_SHA256
     assert (g["k"], g["rng_seed"], g["engine"], g["verifies"]) == (
         15, 8, "host", True)
     assert g["qr_sha256"] == hashlib.sha256(_qr()).hexdigest()
     assert (g["signed_len"], g["nullifier_seed"], g["signal_hash"]) == (
-        chip_smoke.COMPOSITE_SIGNED_LEN, chip_smoke.COMPOSITE_SEED,
-        chip_smoke.COMPOSITE_SIGNAL)
+        port_circuits.COMPOSITE_SIGNED_LEN, port_circuits.COMPOSITE_SEED,
+        port_circuits.COMPOSITE_SIGNAL)
 
 
 def test_composite_host_golden_circuit_is_chip_smokes():
@@ -66,7 +66,7 @@ def test_composite_host_golden_circuit_is_chip_smokes():
     the same public inputs: the nullifier seed, signal, pubkey hash,
     nullifier, timestamp and the revealed fields."""
     assert _halo2tpu_circuit().instances() == (
-        chip_smoke.composite_circuit().instances())
+        port_circuits.composite_circuit().instances())
 
 
 def main() -> int:
@@ -90,10 +90,10 @@ def main() -> int:
           f"{t3 - t2:.1f} s, {len(proof)} bytes, verifies {ok}")
     new = {
         "circuit": "halo2tpu.circuits.aadhaar_qr.AadhaarQRVerifierCircuit "
-                   "as chip_smoke.composite_circuit() builds the port's: "
+                   "as port_circuits.composite_circuit() builds the port's: "
                    "the 1137-byte QR tests/golden/qr_msg.json, its first "
                    "700 bytes signed with tests/golden/rsa_key_2048.json "
-                   "by chip_smoke._pkcs1v15_sha256_sign, "
+                   "by port_circuits._pkcs1v15_sha256_sign, "
                    "AadhaarParams(signed_len=700)",
         "k": 15,
         "srs": "halo2tpu.plonk.srs.setup(15) (the dev SRS)",
@@ -104,18 +104,18 @@ def main() -> int:
         "rng_seed": 8,
         "engine": "host",
         "qr_sha256": hashlib.sha256(_qr()).hexdigest(),
-        "signed_len": chip_smoke.COMPOSITE_SIGNED_LEN,
-        "nullifier_seed": chip_smoke.COMPOSITE_SEED,
-        "signal_hash": chip_smoke.COMPOSITE_SIGNAL,
+        "signed_len": port_circuits.COMPOSITE_SIGNED_LEN,
+        "nullifier_seed": port_circuits.COMPOSITE_SEED,
+        "signal_hash": port_circuits.COMPOSITE_SIGNAL,
         "proof_bytes": len(proof),
         "sha256": hashlib.sha256(proof).hexdigest(),
         "verifies": ok,
     }
     print(json.dumps(new, indent=1))
-    same = new["sha256"] == chip_smoke.COMPOSITE_PROOF_SHA256
+    same = new["sha256"] == port_circuits.COMPOSITE_PROOF_SHA256
     print(f"sha256 {new['sha256']}: "
           + ("the pin's" if same else f"differs from the pin "
-             f"{chip_smoke.COMPOSITE_PROOF_SHA256}"))
+             f"{port_circuits.COMPOSITE_PROOF_SHA256}"))
     return 0 if ok and same else 1
 
 

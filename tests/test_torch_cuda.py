@@ -122,7 +122,7 @@ def test_field_prog_kernel_matches_plain(dev, n):
     """A part program with permutation and lookup rules (the RangeHarness
     circuit) and a gate whose rotations wrap at both ends, at row counts
     that are not multiples of the block, leaves as strided views."""
-    from chip_smoke import golden_circuits
+    from port_circuits import golden_circuits
     cs = ConstraintSystem()
     golden_circuits()["range_k7"][0].configure(cs)
     for prog in (quotient.part_program(cs, n),
@@ -165,9 +165,9 @@ def test_field_prog_split_parts_match_plain(dev, name):
     """The RSA-SHA256 and composite part programs at a k=15 part's 2^15
     rows, split into groups_for(2^15) = 4 sub-programs, and the RSA one
     unsplit and at G_MAX: kernel equal to the interpreter."""
-    import chip_smoke
-    circuit = {"rsa": chip_smoke.rsa_circuit,
-               "composite": chip_smoke.composite_circuit}[name]()
+    import port_circuits
+    circuit = {"rsa": port_circuits.rsa_circuit,
+               "composite": port_circuits.composite_circuit}[name]()
     cs = ConstraintSystem()
     circuit.configure(cs)
     n = 1 << 15
@@ -333,7 +333,7 @@ def _rand_points(m, seed, dev):
                                      (520, 256), (256, 256), (64, 1024),
                                      (32, 2048), (96, 1024), (2032, 256),
                                      (1, 2), (1, 65536)])
-def test_fold_add_tree_matches_plain(dev, G, width):
+def test_fold_add_tree_matches_plain(dev, monkeypatch, G, width):
     """The warm proof's tail shapes (256 x 256, 64 x 1024, 32 x 2048, 96 x
     1024), msm()'s (2032 x 256: two lanewise rounds of the add kernel
     first; 520 x 256: one), widths up to 65,536 in one launch (the last
@@ -354,16 +354,13 @@ def test_fold_add_tree_matches_plain(dev, G, width):
         lanewise += 1
     wave = cuda_ec.tree_slot_limit(dev)
     for limit in (wave, 2 * wave, wave // 2):
-        cuda_ec.TREE_SLOT_LIMIT = limit
-        try:
-            before = (cuda_ec.fold_add_tree.launches,
-                      cuda_ec.fold_add.launches)
-            got = cuda_ec.fold_add_tree(acc, G, width)
-        finally:
-            cuda_ec.TREE_SLOT_LIMIT = None
+        monkeypatch.setattr(cuda_ec, "tree_slot_limit", lambda d: limit)
+        before = (cuda_ec.fold_add_tree.launches, cuda_ec.fold_add.launches)
+        got = cuda_ec.fold_add_tree(acc, G, width)
         assert torch.equal(got, want), limit
         assert (cuda_ec.fold_add_tree.launches - before[0],
                 cuda_ec.fold_add.launches - before[1]) == (1, lanewise)
+    monkeypatch.undo()
     # the counters of the wide groups are left at zero: again, same bits
     assert torch.equal(cuda_ec.fold_add_tree(acc, G, width), want)
 
@@ -602,8 +599,8 @@ def test_prodscan_kernel_odd_sizes_match_plain(dev, spec, n, cols):
 
 def test_grand_products_on_card_match_cpu(dev):
     """TorchEngine.grand_products at 2^12 rows, 11 vectors, on the card
-    (three prodscan, four mont_mul and one fe_pow launch, no plain route)
-    and on the CPU, the same bits."""
+    (three prodscan, four mont_mul and one fe_pow launch, no run of
+    prodscan_plain) and on the CPU (prodscan_plain), the same bits."""
     from halo2tpu_torch.fields import jfield
     from halo2tpu_torch.plonk.engine import TorchEngine
     rng = np.random.default_rng(31)
@@ -614,26 +611,22 @@ def test_grand_products_on_card_match_cpu(dev):
     cpu = TorchEngine.grand_products(None, list(nums), list(dens))
     before = (cuda_field.prodscan.launches, cuda_field.mont_mul.launches,
               cuda_field.mont_pow.launches)
-    plains = (jfield._prefix_prod_plain.cuda_calls,
-              jfield.batch_inv_scan_plain.cuda_calls,
-              cuda_field.prodscan_plain.cuda_calls)
+    plains = cuda_field.prodscan_plain.cuda_calls
     got = TorchEngine.grand_products(None, list(nums.to(dev)),
                                      list(dens.to(dev)))
     assert (cuda_field.prodscan.launches - before[0],
             cuda_field.mont_mul.launches - before[1],
             cuda_field.mont_pow.launches - before[2]) == (3, 4, 1)
-    assert (jfield._prefix_prod_plain.cuda_calls,
-            jfield.batch_inv_scan_plain.cuda_calls,
-            cuda_field.prodscan_plain.cuda_calls) == plains
+    assert cuda_field.prodscan_plain.cuda_calls == plains
     for g, c in zip(got, cpu):
         assert torch.equal(g.cpu(), c)
-    # batch inversion and the prefix product over columns take the kernel
+    # batch inversion and the prefix product over columns: the kernel on
+    # the card, prodscan_plain on the CPU
     x = dens[0].to(dev)
     assert torch.equal(jfield.batch_inv_scan(FR, x).cpu(),
-                       jfield.batch_inv_scan_plain(FR, dens[0]))
+                       jfield.batch_inv_scan(FR, dens[0]))
     assert torch.equal(jfield._prefix_prod(FR, dens.transpose(0, 1).to(dev))
-                       .cpu(), jfield._prefix_prod_plain(
-                           FR, dens.transpose(0, 1)))
+                       .cpu(), jfield._prefix_prod(FR, dens.transpose(0, 1)))
 
 
 def test_linscan_kernel_stacks_match_plain(dev):
@@ -743,7 +736,7 @@ def test_sharded_timestamp_on_card_is_the_golden(dev):
     halo2tpu's HostEngine bytes (tests/golden/torch_port_proofs.json)."""
     import json
     import os
-    from chip_smoke import golden_circuits
+    from port_circuits import golden_circuits
     from halo2tpu_torch.plonk.keygen import keygen
     from halo2tpu_torch.plonk.prover import create_proof
     from halo2tpu_torch.plonk.sharded import ShardedTorchEngine
@@ -767,7 +760,7 @@ def test_sharded_prover_one_shard_a_card(dev):
     the sharded MSM against msm(), Timestamp k=6 against the golden."""
     import json
     import os
-    from chip_smoke import golden_circuits
+    from port_circuits import golden_circuits
     from halo2tpu_torch.fields.bn254 import inv_mod
     from halo2tpu_torch.ops.msm import _partials_to_affine
     from halo2tpu_torch.parallel.mesh import make_mesh
@@ -822,7 +815,7 @@ def test_mock_prover_on_card_matches_cpu(dev, name):
     """MockProver on the card gives the CPU's failure list (which
     tests/test_torch_mock.py holds to halo2tpu's): satisfied, an advice
     cell plus one, a lookup input outside its table, a wrong instance."""
-    from chip_smoke import golden_circuits
+    from port_circuits import golden_circuits
     from halo2tpu_torch.plonk.mock import MockProver
     c, k, inst, _ = golden_circuits()[name]
     card = MockProver.run(k, c, inst, device="cuda")

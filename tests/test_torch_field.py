@@ -1,8 +1,7 @@
 """halo2tpu_torch field arithmetic against halo2tpu's jfield (XLA on CPU)
 and the Pallas mont_mul (interpret mode), mont_pow and inv against
-jfield's, the prefix products and batch inversion (the blocked plain
-routes and the product-scan routes) against jfield's, and the JAX <->
-port converters.
+jfield's, the prefix products and batch inversion (written with the
+product scan) against jfield's, and the JAX <-> port converters.
 Exact equality: these are finite-field values."""
 import jax.numpy as jnp
 import numpy as np
@@ -227,33 +226,26 @@ def test_mont_pow_refuses_exponents_out_of_range():
                             1 << 256)
 
 
-def test_scans_match_jfield():
-    rng = np.random.default_rng(13)
-    xs = [1 + v for v in _vals(rng, R - 1, 40)]
-    aj, at = _pair(jjf.FR, xs)
-    _same(jjf.batch_inv_scan(jjf.FR, aj), tjf.batch_inv_scan(tjf.FR, at))
-    _same(jjf._prefix_prod(jjf.FR, aj), tjf._prefix_prod(tjf.FR, at))
-    _same(jjf.suffix_sum_mod(jjf.FR, aj), tjf.suffix_sum_mod(tjf.FR, at))
-
-
-@pytest.mark.parametrize("field", ["fr", "fq"])
-def test_scan_routes_match_jfield(field):
-    """The kernel routes of batch_inv_scan and _prefix_prod (written with
-    prodscan: here its plain version), as CUDA tensors take them (the grand
-    products over Fr, keygen's window-table normalisation over Fq), against
-    halo2tpu's batch_inv_scan and _prefix_prod."""
+@pytest.mark.parametrize("field,seed", [("fr", 13), ("fr", 19), ("fq", 19)],
+                         ids=["fr-13", "fr-19", "fq-19"])
+def test_scans_match_jfield(field, seed):
+    """batch_inv_scan and _prefix_prod (written with prodscan, which CPU
+    tensors take in its plain version; the grand products run them over
+    Fr, keygen's window-table normalisation over Fq) and suffix_sum_mod
+    against halo2tpu's."""
     p, sj, st = SPECS[field]
-    rng = np.random.default_rng(19)
+    rng = np.random.default_rng(seed)
     xs = [1 + v for v in _vals(rng, p - 1, 40)]
     aj, at = _pair(sj, xs)
-    _same(jjf.batch_inv_scan(sj, aj), tjf._batch_inv_prodscan(st, at))
-    _same(jjf._prefix_prod(sj, aj), tjf._prefix_prod_scan(st, at))
-    assert st.decode(tjf._batch_inv_prodscan(st, at)) == [
+    _same(jjf.batch_inv_scan(sj, aj), tjf.batch_inv_scan(st, at))
+    _same(jjf._prefix_prod(sj, aj), tjf._prefix_prod(st, at))
+    _same(jjf.suffix_sum_mod(sj, aj), tjf.suffix_sum_mod(st, at))
+    assert st.decode(tjf.batch_inv_scan(st, at)) == [
         pow(x, -1, p) for x in xs]
 
 
 def test_prefix_prod_batched_columns():
-    """The blocked scan runs over axis 0 with batch columns behind it."""
+    """The prefix product runs over axis 0 with batch columns behind it."""
     rng = np.random.default_rng(14)
     cols = [[1 + v for v in _vals(rng, R - 1, 37)] for _ in range(3)]
     t = torch.stack([tjf.FR.encode(c, "cpu") for c in cols], dim=1)

@@ -9,22 +9,26 @@ interpreted at n = 64, gives exactly halo2tpu's `quotient._val_fn_for`
 value on JAX CPU for the same leaves; a program folding several values by
 Horner gives the port engine's weighted_sum; slot counts stay within S_MAX
 (halo2tpu's composite Aadhaar gates included) and a program past it
-raises.  Whole part programs (the composite's among them) equal the
-per-op route they replaced, and run in every proof of the byte-parity
-slice tests (tests/test_torch_slice_*.py, test_torch_golden.py)."""
+raises.  Whole part programs (the composite's among them) equal
+halo2tpu's per-op route (the steps of its quotient._fold_part_jnp on JAX
+CPU), and run in every proof of the byte-parity slice tests
+(tests/test_torch_slice_*.py, test_torch_golden.py)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from halo2tpu.circuits.aadhaar_qr import AadhaarQRVerifierCircuit
+import port_circuits
+from halo2tpu.circuits.aadhaar_qr import (AadhaarParams,
+                                          AadhaarQRVerifierCircuit)
 from halo2tpu.circuits.rsa_sha256 import RSASha256Circuit as JaxRSACircuit
+from halo2tpu.fields import jfield as jjf
 from halo2tpu.fields.jfield import FR as JFR
 from halo2tpu.plonk import expression as jexpr
 from halo2tpu.plonk import quotient as jquot
 from halo2tpu.plonk.circuit import ConstraintSystem as JaxCS
 from halo2tpu_torch import convert
-from halo2tpu_torch.fields.bn254 import R
+from halo2tpu_torch.fields.bn254 import FR_DELTA, R
 from halo2tpu_torch.fields.jfield import FR
 from halo2tpu_torch.ops import field_prog as fp
 from halo2tpu_torch.plonk import expression as texpr
@@ -48,16 +52,33 @@ def _configured(circuit, cs_cls):
 
 def _circuit_pairs():
     """name -> (halo2tpu ConstraintSystem, the port's), configure only."""
-    jax_c = jax_golden_circuits()
-    port_c = chip_smoke.golden_circuits()
-    out = {name: (_configured(jax_c[name][0], JaxCS),
+    port_c = port_circuits.golden_circuits()
+    out = {name: (_configured(_jax_circuit(name), JaxCS),
                   _configured(port_c[name][0], ConstraintSystem))
            for name in port_c}
-    rsa = chip_smoke.rsa_circuit()
-    out["rsa_sha256"] = (
-        _configured(JaxRSACircuit(rsa.msg, rsa.n, rsa.sig), JaxCS),
-        _configured(rsa, ConstraintSystem))
+    out["rsa_sha256"] = (_configured(_jax_circuit("rsa_sha256"), JaxCS),
+                         _configured(_circuit("rsa_sha256"), ConstraintSystem))
     return out
+
+
+def _circuit(name: str):
+    """The port's circuit `name`: RSA-SHA256, the composite or a golden
+    circuit (port_circuits.py)."""
+    return {"composite": port_circuits.composite_circuit,
+            "rsa_sha256": port_circuits.rsa_circuit}.get(
+        name, lambda: port_circuits.golden_circuits()[name][0])()
+
+
+def _jax_circuit(name: str):
+    """halo2tpu's circuit `name`, at the port's parameters (configure only
+    for the composite)."""
+    if name == "composite":
+        return AadhaarQRVerifierCircuit(None, AadhaarParams(
+            signed_len=port_circuits.COMPOSITE_SIGNED_LEN))
+    if name == "rsa_sha256":
+        rsa = port_circuits.rsa_circuit()
+        return JaxRSACircuit(rsa.msg, rsa.n, rsa.sig)
+    return jax_golden_circuits()[name][0]
 
 
 def _wrap_expr(mod):
@@ -81,7 +102,7 @@ def _structures():
         for gj, gt in zip(jcs.gates, tcs.gates):
             for pj, pt in zip(gj.polys, gt.polys):
                 toks: list = []
-                quotient._walk(pt, [], toks)
+                jquot._walk(pj, [], toks)
                 key = "".join(toks)
                 if key not in seen:
                     seen.add(key)
@@ -254,13 +275,103 @@ def test_rsa_part_program_shape():
             | ((prog.code[:, 3] >= 0) & (prog.code[:, 3] < 1 << 15))).all()
 
 
-class _NoCard:
-    """chip_smoke._field_prog_case's card, for the bound it is not asked
-    for here."""
+def _part_case(circuit, seed: int):
+    """A circuit's part program at N rows on random leaves (strided column
+    views of one stack, as coeff_to_part_stack returns them) and random
+    challenges: (ConstraintSystem, program, leaves by key, challenges,
+    zh_inv)."""
+    g = torch.Generator().manual_seed(seed)
+    cs = _configured(circuit, ConstraintSystem)
+    prog = quotient.part_program(cs, N)
+    m = len(prog.leaf_keys)
+    x = torch.randint(-2**31, 2**31, (N * m, 8), generator=g,
+                      dtype=torch.int64)
+    x[:, 7] &= 0x0FFFFFFF                             # canonical: < 2^252
+    by_key = dict(zip(prog.leaf_keys,
+                      x.to(torch.int32).reshape(N, m, 8).unbind(1)))
+    vals = torch.randint(0, 2**62, (5, 4), generator=g, dtype=torch.int64)
+    ch_vals = [sum(int(w) << (62 * i) for i, w in enumerate(row)) % R
+               for row in vals.tolist()]
+    ch = dict(zip(("theta", "beta", "gamma", "y"), ch_vals))
+    return cs, prog, by_key, ch, ch_vals[4]
 
-    @staticmethod
-    def bound(nbytes, mul32):
-        return {}
+
+def _run_part(prog, by_key, ch, zh_inv):
+    consts = FR.encode([quotient.const_value(k, ch, zh_inv)
+                        for k in prog.const_keys], "cpu")
+    return fp.field_prog(FR, prog, [by_key[k] for k in prog.leaf_keys],
+                         consts, N)
+
+
+def _halo2tpu_part(jcs, by_key, ch, zh_inv):
+    """A part's hv / Z_H by halo2tpu's per-op route on JAX CPU, the steps
+    of its quotient._fold_part_jnp: _val_fn_for for each gate poly and
+    each lookup's compressed expressions, _val_l0_one_minus_z,
+    _val_llast_zz, _val_l0_z_minus_prev and _val_perm_product for the
+    permutation chunks, _val_lookup_rules for each lookup, then the
+    y-fold and the 1 / Z_H scale; over the port's leaves by_key as
+    halo2tpu's limbs."""
+    cols = {k: jnp.asarray(convert.to_jax_limbs(v)) for k, v in by_key.items()}
+
+    def col(*key):
+        return cols[key]
+
+    def enc(v):
+        return JFR.encode([v % R])[0]
+
+    def value(expr):
+        fn, leaves = jquot._val_fn_for(expr)
+        return fn(*[enc(v) if kind == "const" else col(kind, v)
+                    for kind, v in leaves])
+
+    def wsum(vals, coefs):
+        """sum_i coefs[i] vals[i] (the engine's weighted_sum)."""
+        terms = [jjf.mont_mul(JFR, v, jnp.broadcast_to(enc(c), v.shape))
+                 for v, c in zip(vals, coefs)]
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = jjf.add(JFR, acc, t)
+        return acc
+
+    def compress(exprs):
+        vals = [value(e) for e in exprs]
+        k = len(vals)
+        return vals[0] if k == 1 else wsum(
+            vals, [pow(ch["theta"], k - 1 - i, R) for i in range(k)])
+
+    l0, l_last, l_active = col("l0"), col("l_last"), col("l_active")
+    beta_e, gamma_e = enc(ch["beta"]), enc(ch["gamma"])
+    values = [value(poly) for gate in jcs.gates for poly in gate.polys]
+    chunks = jquot._perm_layout(jcs)
+    if chunks:
+        b = jcs.blinding_factors()
+        perm_cols = jcs.permutation_columns
+        zs = [col("z", j) for j in range(len(chunks))]
+        values.append(jquot._val_l0_one_minus_z(l0, zs[0]))
+        values.append(jquot._val_llast_zz(l_last, zs[-1]))
+        for j in range(1, len(chunks)):
+            values.append(jquot._val_l0_z_minus_prev(l0, zs[j], zs[j - 1],
+                                                     (-(b + 1)) % N))
+        gidx = 0
+        for j, chunk in enumerate(chunks):
+            values.append(jquot._val_perm_product(
+                zs[j], l_active, jnp.stack([col(c.kind, c.index)
+                                            for c in chunk]),
+                jnp.stack([col("sigma", perm_cols.index(c)) for c in chunk]),
+                jnp.stack([enc(ch["beta"] * pow(FR_DELTA, gidx + i, R))
+                           for i in range(len(chunk))]),
+                beta_e, gamma_e, col("wq")))
+            gidx += len(chunk)
+    for li, lk in enumerate(jcs.lookups):
+        values.extend(jquot._val_lookup_rules(
+            *[col("lookup", li, k) for k in range(3)],
+            compress([p[0] for p in lk.pairs]),
+            compress([p[1] for p in lk.pairs]), l0, l_last, l_active,
+            beta_e, gamma_e))
+    n_values = len(values)
+    hv = wsum(values, [pow(ch["y"], n_values - 1 - i, R)
+                       for i in range(n_values)])
+    return jjf.mont_mul(JFR, hv, jnp.broadcast_to(enc(zh_inv), hv.shape))
 
 
 @pytest.mark.parametrize("name", ["composite", "nullifier_k10",
@@ -268,21 +379,15 @@ class _NoCard:
 def test_part_program_matches_the_per_op_route(name):
     """A whole part program (gates, permutation chunks, lookups, the y-fold
     and 1 / Z_H), interpreted at n = 64 on random leaves and challenges,
-    equals the per-op route the prover took before field_prog
-    (chip_smoke.per_op_part): the composite at the default AadhaarParams
+    equals halo2tpu's per-op route over halo2tpu's copy of the circuit
+    (_halo2tpu_part): the composite at the default AadhaarParams
     (permutation chunks of 4, lookups over advice tables), Nullifier
     (degree 6), the extractor harness and RSA-SHA256."""
-    circuit = {"composite": chip_smoke.composite_circuit,
-               "rsa_sha256": chip_smoke.rsa_circuit}.get(
-        name, lambda: chip_smoke.golden_circuits()[name][0])()
-    g = torch.Generator().manual_seed(5)
-    prog, by_key, consts, ch, zh_inv, cs, _ = chip_smoke._field_prog_case(
-        circuit, g, N, _NoCard, "cpu")
-    got = fp.field_prog(FR, prog, [by_key[k] for k in prog.leaf_keys],
-                        consts, N)
-    want = chip_smoke.per_op_part(chip_smoke._op_engine(torch.device("cpu")),
-                                  cs, N, by_key.__getitem__, ch, zh_inv)
-    assert torch.equal(got, want)
+    cs, prog, by_key, ch, zh_inv = _part_case(_circuit(name), 5)
+    got = _run_part(prog, by_key, ch, zh_inv)
+    want = _halo2tpu_part(_configured(_jax_circuit(name), JaxCS), by_key,
+                          ch, zh_inv)
+    assert np.array_equal(convert.to_jax_limbs(got), np.asarray(want)), name
 
 
 def test_composite_part_program_shape():
@@ -290,7 +395,7 @@ def test_composite_part_program_shape():
     permutation rule and lookup rule, 5 slots (it fits S_MAX), 8 parts;
     10,141 instructions in 4 sub-programs (the 1 / Z_H scale is the
     combine's, not an instruction)."""
-    tcs = _configured(chip_smoke.composite_circuit(), ConstraintSystem)
+    tcs = _configured(_circuit("composite"), ConstraintSystem)
     assert (tcs.degree(), tcs.permutation_chunk_len()) == (6, 4)
     assert make_domain(15, tcs.degree()).extended_n == 8 << 15
     chunks = -(-len(tcs.permutation_columns) // tcs.permutation_chunk_len())
@@ -303,24 +408,6 @@ def test_composite_part_program_shape():
 
 
 # -- the split into sub-programs (one warp each on the card) -----------------
-
-def _part_case(name: str):
-    """(ConstraintSystem, random leaves by key, challenges, zh_inv) for a
-    part program at n = N rows."""
-    circuit = {"composite": chip_smoke.composite_circuit,
-               "rsa_sha256": chip_smoke.rsa_circuit}[name]()
-    g = torch.Generator().manual_seed(11)
-    prog, by_key, _, ch, zh_inv, cs, _ = chip_smoke._field_prog_case(
-        circuit, g, N, _NoCard, "cpu")
-    return cs, by_key, ch, zh_inv
-
-
-def _run_part(prog, by_key, ch, zh_inv):
-    consts = FR.encode([quotient.const_value(k, ch, zh_inv)
-                        for k in prog.const_keys], "cpu")
-    return fp.field_prog(FR, prog, [by_key[k] for k in prog.leaf_keys],
-                         consts, N)
-
 
 def _sub_slots(prog, g: int) -> int:
     """Slots sub-program g touches (its largest slot index + 1)."""
@@ -340,7 +427,7 @@ def test_split_program_matches_one_program(name, groups):
     """The part program split into G sub-programs, combined by y-powers
     and scaled, gives the bits of the unsplit program (G = 1) on the same
     seeded leaves at n = 64 rows."""
-    cs, by_key, ch, zh_inv = _part_case(name)
+    cs, _, by_key, ch, zh_inv = _part_case(_circuit(name), 11)
     one = quotient.part_program(cs, N, groups=1)
     split = quotient.part_program(cs, N, groups=groups)
     assert (one.groups, split.groups) == (1, groups)
@@ -354,9 +441,7 @@ def test_split_subprograms_fit_s_max(name):
     """Every sub-program, at G = 1 to G_MAX, stays within S_MAX slots (and
     within the program's own count), ends in OUT and costs within a third
     of the others (the balance by instruction cost)."""
-    cs = _configured({"composite": chip_smoke.composite_circuit,
-                      "rsa_sha256": chip_smoke.rsa_circuit}[name](),
-                     ConstraintSystem)
+    cs = _configured(_circuit(name), ConstraintSystem)
     for groups in range(1, fp.G_MAX + 1):
         prog = quotient.part_program(cs, 1 << 15, groups=groups)
         assert prog.groups == groups and prog.slots <= fp.S_MAX

@@ -157,7 +157,7 @@ def test_prodscan_matches_jfield(n):
     _prefix_prod (forward inclusive; the reverse ones through flips, the
     exclusive ones shifted with a leading 1) and batch_inv_scan (the
     exclusive prefix times the exclusive suffix times the total's inverse
-    is the port's kernel route, written with prodscan)."""
+    is the port's batch_inv_scan, written with prodscan)."""
     from halo2tpu_torch.fields import jfield as tjf
     C = 3
     t, _ = _pair([1 + v % (R - 1) for v in _vals(600 + n, C * n)], (C, n))
@@ -178,10 +178,9 @@ def test_prodscan_matches_jfield(n):
         _same(cuda_field.prodscan(FR, t, totals=True)[c], np.asarray(fwd)[-1])
         _same(cuda_field.prodscan(FR, t, reverse=True, totals=True)[c],
               np.asarray(fwd)[-1])
-        _same(tjf._batch_inv_prodscan(FR, t[c]), jjf.batch_inv_scan(jjf.FR, j))
-    # the prefix product over the columns behind axis 0, as _prefix_prod
-    # takes them on CUDA
-    _same(tjf._prefix_prod_scan(FR, t.transpose(0, 1)),
+        _same(tjf.batch_inv_scan(FR, t[c]), jjf.batch_inv_scan(jjf.FR, j))
+    # the prefix product over the columns behind axis 0
+    _same(tjf._prefix_prod(FR, t.transpose(0, 1)),
           np.stack([np.asarray(jjf._prefix_prod(jjf.FR, jnp.asarray(
               convert.to_jax_limbs(t[c])))) for c in range(C)], 1))
 
@@ -553,7 +552,8 @@ def test_prodscan_schedule_matches_jfield(field, n, cols):
     at short runs and (one column, a wave of one unit) long ones, against
     prodscan_plain and, for the first column, against halo2tpu's
     _prefix_prod (forward; the reverse through flips) and, built from the
-    exclusive scans as the kernel route builds it, batch_inv_scan."""
+    exclusive scans as the port's batch_inv_scan builds it,
+    batch_inv_scan."""
     from halo2tpu_torch.fields import jfield as tjf
     spec, jspec = (FR, jjf.FR) if field == "fr" else (tjf.FQ, jjf.FQ)
     rng_v = np.random.default_rng(700 + n + cols)

@@ -1,6 +1,6 @@
 """tests/golden/torch_port_proofs.json is what halo2tpu's HostEngine proves
 today for its own circuits, built with the parameters of
-chip_smoke.golden_circuits() (which builds the port's copies): the file
+port_circuits.golden_circuits() (which builds the port's copies): the file
 that carries halo2tpu's answer to the GPU machine (which has no JAX) must
 not drift from it.  The port's side, its own circuits proving these bytes
 on the CPU, is in tests/test_torch_slice_{square,timestamp,range,identity,
@@ -10,8 +10,8 @@ import os
 
 import pytest
 
-from chip_smoke import (IDENTITY_ARGS, NULLIFIER_PHOTO, golden_circuits,
-                        mini_qr)
+from port_circuits import (IDENTITY_ARGS, NULLIFIER_PHOTO, golden_circuits,
+                           mini_qr)
 from halo2tpu.circuits.conditional_secrets import IdentityCircuit
 from halo2tpu.circuits.nullifier import NullifierCircuit
 from halo2tpu.circuits.signal import SquareCircuit
@@ -29,7 +29,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
 
 
 class RangeHarness(Circuit):
-    """halo2tpu's copy of chip_smoke's RangeHarness: a 6-bit range check
+    """halo2tpu's copy of port_circuits' RangeHarness: a 6-bit range check
     of 45 over 4 advice and 2 lookup columns."""
 
     def configure(self, cs):
@@ -45,7 +45,7 @@ class RangeHarness(Circuit):
 
 
 class ExtractorHarness(Circuit):
-    """halo2tpu's copy of chip_smoke's extractor harness: the year and the
+    """halo2tpu's copy of port_circuits' extractor harness: the year and the
     gender of the mini QR through the qr_delim and qr_access lookups."""
 
     def __init__(self, data: bytes):
@@ -70,7 +70,7 @@ class ExtractorHarness(Circuit):
 
 def jax_golden_circuits():
     """name -> (halo2tpu circuit, k, instances, rng_seed), the same
-    circuits and parameters as chip_smoke.golden_circuits()."""
+    circuits and parameters as port_circuits.golden_circuits()."""
     sq = SquareCircuit(5)
     nul = NullifierCircuit(12345678, NULLIFIER_PHOTO)
     return {

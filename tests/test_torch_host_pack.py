@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import port_circuits
 from halo2tpu_torch import _build
 from halo2tpu_torch.fields import jfield
 from halo2tpu_torch.fields.bn254 import Q, R
@@ -192,7 +192,7 @@ def test_from_ints_stack_matches_the_joined_packing(engine, seed):
 
 
 def test_from_ints_stack_of_a_circuits_advice(engine):
-    c = chip_smoke.golden_circuits()["timestamp_k6"][0]
+    c = port_circuits.golden_circuits()["timestamp_k6"][0]
     cs = ConstraintSystem()
     config = c.configure(cs)
     asn = Assignment(cs, 64, recording=False)

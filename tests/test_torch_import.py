@@ -62,7 +62,8 @@ def test_import_needs_no_cuda_nvcc_or_triton():
             "halo2tpu_torch.parallel.ntt, halo2tpu_torch.parallel.msm, "
             "halo2tpu_torch.parallel.dcn, halo2tpu_torch.parallel.pipeline, "
             "halo2tpu_torch.parallel.scaling_report, "
-            "halo2tpu_torch.plonk.mock, halo2tpu_torch.evm.verifier\n"
+            "halo2tpu_torch.plonk.mock, halo2tpu_torch.evm.verifier, "
+            "port_circuits\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "from halo2tpu_torch import _build\n"
             "assert _build._lib is None and _build._host_lib is None\n")
@@ -84,7 +85,8 @@ def _imports_of(path):
 
 
 def test_port_and_chip_smoke_import_nothing_of_halo2tpu():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                              "port_circuits.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "halo2tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30

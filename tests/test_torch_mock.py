@@ -1,5 +1,5 @@
 """The port's MockProver (halo2tpu_torch/plonk/mock.py) against halo2tpu's:
-for each circuit of chip_smoke.golden_circuits(), built once from each
+for each circuit of port_circuits.golden_circuits(), built once from each
 package, and each witness (satisfied, one advice cell overwritten after
 synthesis, a broken copy, a lookup input outside its table, a wrong
 instance, and tampers that break more than 16 rows), the port's verify()
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import golden_circuits
+from port_circuits import golden_circuits
 from halo2tpu import native
 from halo2tpu.fields.bn254 import R
 from halo2tpu.plonk import expression as jexpr

@@ -1,14 +1,14 @@
 """The tampered RSA-SHA256 k=15 mock prover's golden
 (tests/golden/mock_k15_failures.json): halo2tpu's MockProver failure list,
-from its C++ gate evaluator, for chip_smoke.rsa_circuit()'s circuit with
-the advice cells of chip_smoke.MOCK_TAMPER overwritten after synthesis.
+from its C++ gate evaluator, for port_circuits.rsa_circuit()'s circuit with
+the advice cells of port_circuits.MOCK_TAMPER overwritten after synthesis.
 chip_smoke.py phase 8 holds the port's MockProver on the card to this list;
 here the golden is held to those tamper constants and to the inputs
-chip_smoke signs.
+port_circuits signs.
 
 Run as a script, it computes the list again with halo2tpu alone (RSA at
 k = 15 satisfied and tampered, then the composite Aadhaar circuit of
-chip_smoke.composite_circuit() satisfied and with a wrong nullifier seed),
+port_circuits.composite_circuit() satisfied and with a wrong nullifier seed),
 prints each part's wall time on this host, and exits non-zero unless the
 tampered list equals the golden's.  It never writes the golden:
     JAX_PLATFORMS=cpu python tests/test_torch_mock_golden.py
@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-import chip_smoke  # noqa: E402
+import port_circuits  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests/golden/mock_k15_failures.json")
 
@@ -36,9 +36,9 @@ def _golden() -> dict:
 def test_mock_golden_is_chip_smokes_tamper():
     g = _golden()
     assert g["k"] == 15
-    assert [tuple(t) for t in g["tamper"]] == list(chip_smoke.MOCK_TAMPER)
+    assert [tuple(t) for t in g["tamper"]] == list(port_circuits.MOCK_TAMPER)
     assert g["message_sha256"] == hashlib.sha256(
-        chip_smoke.RSA_MESSAGE).hexdigest()
+        port_circuits.RSA_MESSAGE).hexdigest()
     assert g["evaluator"] == "native"
 
 
@@ -49,7 +49,7 @@ def test_mock_golden_has_each_kind_and_names_the_tamper():
     assert {f["kind"] for f in fails} == {"gate", "copy", "lookup"}
     assert len(fails) <= 16
     details = " ".join(f["detail"] for f in fails)
-    for col, row, value in chip_smoke.MOCK_TAMPER:
+    for col, row, value in port_circuits.MOCK_TAMPER:
         assert f"Column('advice', {col})[{row}]={value}" in details
 
 
@@ -79,13 +79,13 @@ def main() -> int:
     print(f"rsa k=15 satisfied: {len(ok)} failures, synthesis {synth:.2f} "
           f"s, verify {verify:.2f} s")
     fails, synth, verify = _halo2tpu_run(c, c.instances(),
-                                         chip_smoke.MOCK_TAMPER)
+                                         port_circuits.MOCK_TAMPER)
     print(f"rsa k=15 tampered: {len(fails)} failures, synthesis "
           f"{synth:.2f} s, verify {verify:.2f} s")
     g = _golden()
-    new = dict(g, tamper=[list(t) for t in chip_smoke.MOCK_TAMPER],
+    new = dict(g, tamper=[list(t) for t in port_circuits.MOCK_TAMPER],
                message_sha256=hashlib.sha256(
-                   chip_smoke.RSA_MESSAGE).hexdigest(), failures=fails)
+                   port_circuits.RSA_MESSAGE).hexdigest(), failures=fails)
     print(json.dumps(new, indent=1))
     same = new == g
     print("the golden's list" if same else "differs from the golden")

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _configured_cs, golden_circuits
+from port_circuits import _configured_cs, golden_circuits
 from halo2tpu_torch.fields.bn254 import R
 from halo2tpu_torch.parallel.mesh import Mesh, Sharded
 from halo2tpu_torch.plonk.domain import make_domain

@@ -1,5 +1,5 @@
 """The port's whole prover on the QR extractor harness over the mini QR at
-k=8 (chip_smoke._extractor_harness): byte-identical to halo2tpu's
+k=8 (port_circuits._extractor_harness): byte-identical to halo2tpu's
 HostEngine proof and to the golden file, and both verifiers accept it.
 Its lookups are pairs whose table is advice (qr_access: position and data
 byte; qr_delim: delimiter index and position), beside a 4-bit fixed range

@@ -1,7 +1,7 @@
 """The port's whole slice on a lookup-bearing circuit (RangeHarness, k=7:
 compression, permuted pairs, lookup grand products): byte-identical to
 halo2tpu's HostEngine proof and to the golden file.  The port proves its
-own copy of the circuit (chip_smoke.golden_circuits())."""
+own copy of the circuit (port_circuits.golden_circuits())."""
 import json
 
 import pytest

@@ -1,13 +1,13 @@
 """The port's whole slice on the Timestamp circuit (k=6, permutation only):
 byte-identical to halo2tpu's HostEngine proof and to the golden file.  The
-port proves its own copy of the circuit (chip_smoke.golden_circuits())."""
+port proves its own copy of the circuit (port_circuits.golden_circuits())."""
 import json
 import os
 
 import pytest
 import torch
 
-from chip_smoke import golden_circuits
+from port_circuits import golden_circuits
 from halo2tpu.circuits.timestamp import TimestampCircuit
 from halo2tpu.plonk.keygen import keygen as jax_keygen
 from halo2tpu.plonk.prover import create_proof as jax_create_proof

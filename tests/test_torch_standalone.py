@@ -20,7 +20,7 @@ from halo2tpu_torch.plonk.keygen import cs_structure_digest, keygen
 from halo2tpu_torch.plonk.srs import setup
 from halo2tpu_torch.plonk.verifier import verify_proof
 
-from chip_smoke import golden_circuits
+from port_circuits import golden_circuits
 from test_torch_golden import GOLDEN_NAMES, jax_golden_circuits
 
 torch.set_num_threads(1)

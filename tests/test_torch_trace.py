@@ -14,7 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
+import port_circuits
 from halo2tpu_torch.circuits.signal import SquareCircuit
 from halo2tpu_torch.fields import jfield
 from halo2tpu_torch.plonk.engine import TorchEngine
@@ -62,7 +62,7 @@ def _circuit(name):
     if name == "square_k3":
         c = SquareCircuit(5)
         return c, 3, c.instances(), 9
-    return chip_smoke.golden_circuits()[name]
+    return port_circuits.golden_circuits()[name]
 
 
 @pytest.fixture(scope="module")

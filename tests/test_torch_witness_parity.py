@@ -1,9 +1,9 @@
 """Witness-level parity at the scale of the card's circuits, with no proof:
 the composite Aadhaar circuit at the mini-QR parameters (K = 14, as
-tests/test_aadhaar_composite.py runs it) and RSA-SHA256 at chip_smoke.py's
-k=15 parameters.  The port's copy and halo2tpu's circuit must give the same
-structure digest, synthesized advice and fixed columns, instances and
-permutation mapping.
+tests/test_aadhaar_composite.py runs it) and RSA-SHA256 at
+port_circuits.py's k=15 parameters.  The port's copy and halo2tpu's
+circuit must give the same structure digest, synthesized advice and fixed
+columns, instances and permutation mapping.
 
 At the benchmark's two configurations, synthesis as a proof runs it
 (`recording=False`) on two of its requests: the same advice columns and
@@ -15,7 +15,7 @@ import os
 import numpy as np
 import pytest
 
-import chip_smoke
+import port_circuits
 from halo2tpu.circuits import aadhaar_qr as jax_aadhaar
 from halo2tpu.circuits.rsa_sha256 import RSASha256Circuit as JaxRSA
 from halo2tpu.plonk import circuit as jax_circuit
@@ -32,8 +32,8 @@ CASES = {"composite_mini": 14, "rsa_sha256": 15}
 
 
 def _key():
-    with open(os.path.join(chip_smoke.ROOT, "tests/golden/rsa_key_2048.json")
-              ) as f:
+    with open(os.path.join(port_circuits.ROOT,
+                           "tests/golden/rsa_key_2048.json")) as f:
         key = json.load(f)
     return key["p"], key["q"], key["e"]
 
@@ -41,11 +41,11 @@ def _key():
 def _circuits(case):
     """(halo2tpu's circuit, the port's) for a case, same witness."""
     if case == "rsa_sha256":
-        port = chip_smoke.rsa_circuit()
+        port = port_circuits.rsa_circuit()
         return JaxRSA(port.msg, port.n, port.sig), port
     p, q, e = _key()
-    qr = chip_smoke.mini_qr()
-    sig = chip_smoke._pkcs1v15_sha256_sign(p, q, e, qr)
+    qr = port_circuits.mini_qr()
+    sig = port_circuits._pkcs1v15_sha256_sign(p, q, e, qr)
     pair = []
     for mod in (jax_aadhaar, aadhaar_qr):
         w = mod.AadhaarWitness(qr, p * q, sig, nullifier_seed=12345678,
@@ -99,7 +99,7 @@ def test_composite_mini_outputs_match_halo2tpu():
 
 def test_mini_qr_is_the_composite_tests_qr():
     from test_aadhaar_composite import build_mini_qr
-    assert chip_smoke.mini_qr() == build_mini_qr()
+    assert port_circuits.mini_qr() == build_mini_qr()
 
 
 # the benchmark's configurations: (cell, halo2tpu's module, the port's)

@@ -27,6 +27,7 @@ from ..fields.bn254 import R
 from ..plonk.circuit import Assignment, Column, ConstraintSystem
 from .flexgate import AssignedValue, Const, FlexGateConfig, GateChip, Witness
 from .placement import LeastFilled, pow2_consts, report
+from .sha_words import CH, MAJ, XOR, WordLanes, rotr
 
 H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
       0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
@@ -148,6 +149,8 @@ class Sha256Chip:
             for lane in cfg.lanes]
         self._copies = asn.copies
         self._rec = asn.recording
+        # the hash path's word-level emitter (gadgets/sha_words.py)
+        self._words = WordLanes(self)
 
     # -- custom-region emitters ----------------------------------------------
     def _lane_rows(self, n: int):
@@ -263,54 +266,38 @@ class Sha256Chip:
     # -- compression ----------------------------------------------------------
     def _load_state_words(self, words):
         """words: list of 8 cells; decompose each to get bits."""
-        out = []
-        for c in words:
-            w, _ = self.decompose(c, 32)
-            out.append(w)
-        return out
+        return [_Word(*self._words.decompose(c, 32)) for c in words]
 
     def compress_block(self, state, w_words):
         """state: 8 _Word (with bits); w_words: 16 _Word message words.
-        Returns new state as 8 _Word (with bits)."""
+        Returns new state as 8 _Word (with bits).  The bits are
+        sha_words.Bits (a word's value and place): the runs and regions
+        are the per-cell code's, emitted by word."""
         g = self.gate
+        ws = self._words    # the per-cell runs and regions, by word
         w = list(w_words)
         for t in range(16, 64):
-            s0b = self.xor3_bits(self._rotr(w[t - 15].bits, 7),
-                                 self._rotr(w[t - 15].bits, 18),
-                                 self._shr(w[t - 15].bits, 3))
-            s1b = self.xor3_bits(self._rotr(w[t - 2].bits, 17),
-                                 self._rotr(w[t - 2].bits, 19),
-                                 self._shr(w[t - 2].bits, 10))
-            total = self._pack_sum([s0b, s1b],
-                                   [w[t - 7].cell, w[t - 16].cell])
-            word, _ = self.decompose(total, 34)
-            w.append(word)
+            x, y = w[t - 15].bits, w[t - 2].bits
+            s0b = ws.bitop(XOR, rotr(x, 7), rotr(x, 18), ws.shr(x, 3))
+            s1b = ws.bitop(XOR, rotr(y, 17), rotr(y, 19), ws.shr(y, 10))
+            total = ws.pack([s0b, s1b], [w[t - 7].cell, w[t - 16].cell])
+            w.append(_Word(*ws.decompose(total, 34)))
 
         a, b, c, d, e, f, gg, h = state
         for t in range(64):
-            sig1 = self.xor3_bits(self._rotr(e.bits, 6),
-                                  self._rotr(e.bits, 11),
-                                  self._rotr(e.bits, 25))
-            ch = self.ch_bits(e.bits, f.bits, gg.bits)
-            sig0 = self.xor3_bits(self._rotr(a.bits, 2),
-                                  self._rotr(a.bits, 13),
-                                  self._rotr(a.bits, 22))
-            mj = self.maj_bits(a.bits, b.bits, c.bits)
-            t1 = self._pack_sum(
-                [sig1, ch],
-                [h.cell, w[t].cell, g.load_constant(K256[t])])
-            t2 = self._pack_sum([sig0, mj], [])
-            new_e_sum = g.add(d.cell, t1)
-            new_e, _ = self.decompose(new_e_sum, 35)
-            new_a_sum = g.add(t1, t2)
-            new_a, _ = self.decompose(new_a_sum, 35)
+            eb, ab = e.bits, a.bits
+            sig1 = ws.bitop(XOR, rotr(eb, 6), rotr(eb, 11), rotr(eb, 25))
+            ch = ws.bitop(CH, rotr(eb), rotr(f.bits), rotr(gg.bits))
+            sig0 = ws.bitop(XOR, rotr(ab, 2), rotr(ab, 13), rotr(ab, 22))
+            mj = ws.bitop(MAJ, rotr(ab), rotr(b.bits), rotr(c.bits))
+            t1 = ws.pack([sig1, ch],
+                         [h.cell, w[t].cell, g.load_constant(K256[t])])
+            t2 = ws.pack([sig0, mj], [])
+            new_e = _Word(*ws.decompose(g.add(d.cell, t1), 35))
+            new_a = _Word(*ws.decompose(g.add(t1, t2), 35))
             a, b, c, d, e, f, gg, h = new_a, a, b, c, new_e, e, f, gg
-        out = []
-        for s, v in zip(state, (a, b, c, d, e, f, gg, h)):
-            total = g.add(s.cell, v.cell)
-            word, _ = self.decompose(total, 33)
-            out.append(word)
-        return out
+        return [_Word(*ws.decompose(g.add(s.cell, v.cell), 33))
+                for s, v in zip(state, (a, b, c, d, e, f, gg, h))]
 
     # -- public API -----------------------------------------------------------
     def digest(self, msg_cells: list, msg: bytes):
@@ -334,8 +321,7 @@ class Sha256Chip:
                 word_cell = g.inner_product(
                     bs, [Const(1 << 24), Const(1 << 16), Const(1 << 8),
                          Const(1)])
-                word, _ = self.decompose(word_cell, 32)
-                w_words.append(word)
+                w_words.append(_Word(*self._words.decompose(word_cell, 32)))
             state = self.compress_block(state, w_words)
 
         # digest bytes: each state word -> 4 big-endian byte cells, bound by
@@ -343,11 +329,8 @@ class Sha256Chip:
         # -> bytes are implied sums; emit as inner products of bit cells).
         out = []
         for word in state:
-            for j in range(4):
-                bits = word.bits[24 - 8 * j: 32 - 8 * j]
-                byte = g.inner_product(
-                    bits, [Const(1 << i) for i in range(8)])
-                out.append(byte)
+            out.extend(self._words.byte_cells(word.bits))
+        self._words.flush()
         return out
 
     def digest_dynamic(self, data_cells: list, mlen_cell, max_len: int,
@@ -458,8 +441,7 @@ class Sha256Chip:
                 word_cell = g.inner_product(
                     bs, [Const(1 << 24), Const(1 << 16), Const(1 << 8),
                          Const(1)])
-                word, _ = self.decompose(word_cell, 32)
-                w_words.append(word)
+                w_words.append(_Word(*self._words.decompose(word_cell, 32)))
             state = self.compress_block(state, w_words)
             block_states.append(state)
 
@@ -468,15 +450,15 @@ class Sha256Chip:
         for j in range(8):
             sel = g.select_by_indicator(
                 [st[j].cell for st in block_states], fb_cells)
-            word, _ = self.decompose(sel, 32)
-            for jj in range(4):
-                bits = word.bits[24 - 8 * jj: 32 - 8 * jj]
-                out.append(g.inner_product(
-                    bits, [Const(1 << i) for i in range(8)]))
+            _, bits = self._words.decompose(sel, 32)
+            out.extend(self._words.byte_cells(bits))
+        self._words.flush()
         return out
 
     def occupancy(self) -> dict:
         """Rows and lane fills; adds the regions the lanes and the gate
-        columns placed to the traced proof's `placements`."""
+        columns placed to the traced proof's `placements`, and the lane
+        rows the word-level emitter wrote to its `sha_bulk_rows`."""
         report(self.gate.cols, self.cols)
+        self._words.report()
         return {"sha_rows": self.rows_used, "lane_fill": list(self._fill)}

@@ -27,14 +27,18 @@ COPIES = [
 
 # file -> the port's own functions: the least-filled search on
 # placement.LeastFilled, the placement counter in the occupancy reports,
-# the SHA packing's and the extractor's constants from placement's tables
+# the SHA packing's and the extractor's constants from placement's tables,
+# the SHA hash path's runs and regions written by word (gadgets/sha_words.py)
 REDESIGNED = {
     "gadgets/flexgate.py": ["GateChip.__init__", "GateChip.assign_region",
                             "GateChip.inner_product"],
     "gadgets/range.py": ["RangeChip.__init__", "RangeChip._lookup_cell",
                          "RangeChip.finalize"],
     "gadgets/sha256.py": ["Sha256Chip.__init__", "Sha256Chip._lane_rows",
-                          "Sha256Chip._pack_sum", "Sha256Chip.occupancy"],
+                          "Sha256Chip._pack_sum", "Sha256Chip.occupancy",
+                          "Sha256Chip._load_state_words",
+                          "Sha256Chip.compress_block", "Sha256Chip.digest",
+                          "Sha256Chip.digest_dynamic"],
     "gadgets/qr_extractor.py": ["ExtractorChip.load_data"],
 }
 
